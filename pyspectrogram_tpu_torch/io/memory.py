@@ -1,0 +1,75 @@
+"""A capture held in memory, with the RFDataset interface StiPipeline reads.
+
+:class:`MemoryDataset` serves one channel of samples from a numpy array:
+its bounds, rate, full-scale reference and channel maps, and
+``reader.read_vector_raw`` with the Digital RF reader's semantics (storage
+dtype, zero fill and a False mask outside the written span). A request then
+runs end to end, host assembly and prefetch branch included, without
+Digital RF files or h5py.
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+
+import numpy as np
+
+from pyspectrogram_tpu.io.reader import RFDataset
+
+
+class MemoryReader:
+    """The part of io.reader.DigitalRFReader that StiPipeline calls, over
+    one (n, nsub) array whose first row is absolute sample ``start``."""
+
+    def __init__(self, channel: str, samples: np.ndarray, start: int):
+        self.channel = channel
+        self.samples = samples
+        self.start = int(start)
+
+    def get_bounds(self, channel: str):
+        """(first, last) absolute sample, both inclusive."""
+        return self.start, self.start + len(self.samples) - 1
+
+    def data_version(self, channel: str):
+        return 1, 0  # held data never changes
+
+    def read_vector_raw(self, start_sample: int, n_samples: int,
+                        channel: str, return_mask: bool = False):
+        """Dense (n, nsub) read in the storage dtype; samples outside the
+        held span are zero and masked False."""
+        st, n = int(start_sample), int(n_samples)
+        out = np.zeros((n, self.samples.shape[1]), self.samples.dtype)
+        mask = np.zeros(n, bool)
+        lo = max(st, self.start)
+        hi = min(st + n, self.start + len(self.samples))
+        if lo < hi:
+            out[lo - st:hi - st] = self.samples[lo - self.start:hi - self.start]
+            mask[lo - st:hi - st] = True
+        return (out, mask) if return_mask else out
+
+
+class MemoryDataset(RFDataset):
+    """One channel of ``samples`` ((n, nsub) or (n,), complex64 or the
+    int16 ('r', 'i') compound) at ``sample_rate`` Hz, first sample at
+    absolute index ``start``, dBFS reference ``ref``. Holds the same public
+    state as RFDataset and inherits its channel parsing, frame-start
+    spreading and bounds refresh."""
+
+    def __init__(self, samples: np.ndarray, sample_rate, channel: str = "ch0",
+                 start: int = 0, ref: float = 1.0):
+        # RFDataset.__init__ opens a directory; set its state directly
+        samples = np.asarray(samples)
+        if samples.ndim == 1:
+            samples = samples[:, None]
+        self.reader = MemoryReader(channel, samples, start)
+        sr = Fraction(sample_rate)
+        bnds = self.reader.get_bounds(channel)
+        nsub = samples.shape[1]
+        self.chan_2sub = {channel: np.arange(nsub)}
+        self.chan_entries = {f"{channel}:{i}": (channel, i)
+                             for i in range(nsub)}
+        self.sr_dict = {channel: sr}
+        self.ref_dict = {channel: float(ref)}
+        self.bnds = {channel: bnds}
+        self.data_version = {channel: self.reader.data_version(channel)}
+        self.time_bnds = (float(bnds[0] / sr), float(bnds[1] / sr))

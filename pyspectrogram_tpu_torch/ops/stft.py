@@ -1,0 +1,181 @@
+"""STI/PSD compute core in PyTorch — the port of pyspectrogram_tpu/ops/stft.py.
+
+One request's device half, run eagerly on the samples' own device:
+
+    plane-major samples + frame starts -> window -> FFT -> |X|^2 ->
+    (Welch average) -> fftshift -> linear PSD ; exact median across time ;
+    dBFS or the uint8 display tile
+
+The PSD runs in kernel B1 (kernels.sti_cuda) on a CUDA tensor whose nfft
+the kernel covers, and in ops.plain.psd_torch (torch.fft) everywhere else.
+The median runs a Batcher network for n <= 32 and kernel B2
+(kernels.median_cuda) or its plain bisection above. Host constants — the
+window and the power scale — are built once in numpy float64, as the JAX
+package builds them, and cast to float32 on the device. No step uses a
+matrix product, so the TF32 switches of torch.backends do not apply.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pyspectrogram_tpu_torch.display.tile import quantize_tile_linear
+from pyspectrogram_tpu_torch.kernels import median_cuda, sti_cuda
+from pyspectrogram_tpu_torch.ops.plain import psd_torch, to_dbfs
+from pyspectrogram_tpu_torch.ops.windows import WindowSpec
+
+#: below this many rows the sorting-network median beats the 33-pass
+#: bisection (ops/stft.py:239 of the JAX package)
+MEDIAN_NETWORK_MAX_N = 32
+
+
+@functools.lru_cache(maxsize=64)
+def _batcher_pairs(n: int):
+    """Compare-exchange pairs of Batcher's odd-even mergesort for n rows
+    (host-side plan; ~n log^2 n / 4 pairs)."""
+    pairs = []
+    p = 1
+    while p < n:
+        k = p
+        while k >= 1:
+            for j in range(k % p, n - k, 2 * k):
+                for i in range(0, min(k, n - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
+                        pairs.append((i + j, i + j + k))
+            k //= 2
+        p *= 2
+    return tuple(pairs)
+
+
+def _median_network(p: torch.Tensor, n: int) -> torch.Tensor:
+    rows = [p[i] for i in range(n)]
+    for a, b in _batcher_pairs(n):
+        rows[a], rows[b] = (torch.minimum(rows[a], rows[b]),
+                            torch.maximum(rows[a], rows[b]))
+    if n % 2:
+        return rows[n // 2]
+    return 0.5 * (rows[n // 2 - 1] + rows[n // 2])
+
+
+def median_over_time(p: torch.Tensor,
+                     ntime_valid: Optional[int] = None) -> torch.Tensor:
+    """Median across the leading (time) axis of (ntime, ..., nfft) — the
+    reference's per-subchannel median PSD (drfProc.py:401). For even n it
+    is the mean of the two middles, as np.median (torch.median returns the
+    lower middle). ``ntime_valid`` restricts to a leading prefix."""
+    n = p.shape[0] if ntime_valid is None else int(ntime_valid)
+    p = p[:n]
+    if n <= MEDIAN_NETWORK_MAX_N:
+        return _median_network(p, n)
+    if p.dtype == torch.float32:
+        return median_cuda.median_over_time_cuda(p)
+    s = torch.sort(p, dim=0).values
+    if n % 2:
+        return s[n // 2]
+    return 0.5 * (s[n // 2 - 1] + s[n // 2])
+
+
+def pick_impl(nfft: int, device, impl: str = "auto") -> str:
+    """'cuda' | 'torch' — the PSD dispatch policy, the port's counterpart
+    of sti_pallas.pick_impl. "auto" takes kernel B1 for a CUDA device and
+    an nfft the kernel covers (kernels.sti_cuda.supported), torch.fft
+    otherwise. An explicit "cuda" is an ask, not a hint: outside the
+    kernel's range it raises (on a CPU tensor the kernel's wrapper runs
+    its plain version)."""
+    if impl == "torch":
+        return "torch"
+    if impl == "cuda":
+        sti_cuda.check_supported(nfft)
+        return "cuda"
+    if impl != "auto":
+        raise ValueError(f"unknown impl {impl!r}")
+    if torch.device(device).type == "cuda" and sti_cuda.supported(nfft):
+        return "cuda"
+    return "torch"
+
+
+@functools.lru_cache(maxsize=256)
+def make_sti_fn_pm(
+    *,
+    nfft: int,
+    nint: int = 1,
+    mode: str = "welch",
+    window: WindowSpec = ("kaiser", 1.7),
+    ref: float = 1.0,
+    eps: float = 1e-15,
+    impl: str = "auto",
+    return_linear: bool = False,
+    return_minmax: bool = False,
+    contiguous: bool = False,
+    precision: str = "exact",
+    tile=None,
+):
+    """Plane-major STI — the port of make_sti_fn_pm (ops/stft.py:410 of
+    the JAX package), with the same output keys.
+
+    Returns ``f(samples_pm, starts, qparams=None)``: samples_pm
+    (nsub*2, nsamp) float32 or int16 (row 2s the real plane of subchannel
+    s, row 2s+1 its imaginary plane; int16 widens on the device, the dBFS
+    normalization rides the power scale), starts (ntime,) int32 on the
+    same device. Outputs: ``sxx_med_dbfs`` (nsub, nfft), and either
+    ``sxx_dbfs`` (ntime, nsub, nfft) or, with ``tile`` (a
+    display.TileSpec), the uint8 ``tile`` (ntime, nsub, plot_n) whose
+    colour range is the runtime operand ``qparams`` (TileSpec.qparams by
+    default); plus ``sxx_min_dbfs``/``sxx_max_dbfs`` and the linear
+    ``sxx``/``sxx_med`` on request.
+
+    ``contiguous=True`` declares that column t starts at t*nfft*nint, as
+    every block the pipeline assembles does; the buffer must then hold
+    ntime such frames. ``precision`` is accepted for every tier: the
+    float32 kernel meets all three (exact ~1e-5 dB, balanced ~7e-4 dB,
+    display ~0.12 dB).
+    """
+    if mode not in ("parity", "welch"):
+        raise ValueError(f"mode must be 'parity' or 'welch', got {mode!r}")
+    if precision not in ("exact", "balanced", "display"):
+        raise ValueError(f"unknown precision {precision!r}")
+    pick_impl(nfft, "cpu", impl)  # validates impl and an explicit ask
+    default_qp = None if tile is None else tile.qparams
+    psd_kw = dict(nfft=nfft, nint=nint, mode=mode, window=window, ref=ref)
+
+    def sti_fn(samples_pm: torch.Tensor, starts: torch.Tensor,
+               qparams=None) -> dict:
+        if contiguous and samples_pm.shape[1] < starts.shape[0] * nfft * nint:
+            raise ValueError("buffer shorter than ntime contiguous frames")
+        if pick_impl(nfft, samples_pm.device, impl) == "cuda":
+            p = sti_cuda.sti_psd_cuda(samples_pm, starts, **psd_kw)
+        else:
+            p = psd_torch(samples_pm, starts, **psd_kw)
+        p_med = median_over_time(p)
+        out = {"sxx_med_dbfs": to_dbfs(p_med, eps)}
+        if tile is not None:
+            # display mode: the float spectra stay on the device
+            out["tile"] = quantize_tile_linear(
+                p, tile, eps, default_qp if qparams is None else qparams)
+        else:
+            out["sxx_dbfs"] = to_dbfs(p, eps)
+        if return_minmax:
+            out["sxx_min_dbfs"] = to_dbfs(p.amin(dim=0), eps)
+            out["sxx_max_dbfs"] = to_dbfs(p.amax(dim=0), eps)
+        if return_linear:
+            out["sxx"] = p
+            out["sxx_med"] = p_med
+        return out
+
+    return sti_fn
+
+
+def to_reference_layout(sxx: np.ndarray) -> np.ndarray:
+    """(ntime, nsub, nfft) device layout -> (nfft, ntime, nsub) reference
+    layout (reference: drfProc.py:365)."""
+    return np.moveaxis(np.asarray(sxx), -1, 0)
+
+
+def shifted_freqs(nfft: int, sample_rate) -> np.ndarray:
+    """fftshifted two-sided frequency axis in Hz, float64 on host
+    (reference: drfProc.py:398, drfview.py:988)."""
+    return np.fft.fftshift(np.fft.fftfreq(nfft, 1.0 / float(sample_rate)))
