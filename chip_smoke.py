@@ -2,22 +2,31 @@
 
     python3 chip_smoke.py
 
-Builds kernels B1 (STI PSD) and B2 (time-median) from
-pyspectrogram_tpu_torch/csrc with nvcc, holds each against its plain torch
-version on the card, drives the written-mode STI request through
-StiPipeline.compute at the headline size (nfft 4096, nint 4, ntime 128, two
-subchannels, welch, exact; its 33.5 MB block takes the prefetch branch), in
-display-tile mode, and at the reference GUI's default (nfft 1024, nint 1,
-ntime 100), checks the results, and times kernels and request with CUDA
-events and the wall clock. Every phase prints one JSON line; the last line
-is ``{"ok": true, "device": {...}}``. Any failed check raises, and the exit
+Builds kernels B1 (STI PSD), B2 (time-median), B3 (overlap-hop streaming
+push) and B4 (STI PSD at nfft >= 65536) from pyspectrogram_tpu_torch/csrc
+with nvcc, holds each against its plain torch version on the card, and
+drives the port's paths on the card, checking what comes out:
+
+- the written-mode STI request through StiPipeline.compute at the headline
+  size (nfft 4096, nint 4, ntime 128, two subchannels, welch, exact; its
+  33.5 MB block takes the prefetch branch), in display-tile mode, at the
+  reference GUI's default (nfft 1024, nint 1, ntime 100), and at nfft
+  65536 and 2^20 (kernel B4);
+- StreamingSti at the JAX bench's streaming shapes (nfft 4096, nsub 2,
+  8 columns per push, ring 256: exact, display, hop 2048);
+- LiveStreamEngine at full width (a 30 s window of a 1 MS/s two-channel
+  capture that grows between ticks: a 480 MB ring on the card), its
+  checkpoint and resume, and at nfft 2^20;
+
+then times kernels, pushes, ticks and requests with CUDA events and the
+wall clock. Every phase prints one JSON line; the last line is
+``{"ok": true, "device": {...}}``. Any failed check raises, and the exit
 code is then non-zero. Needs one CUDA device; imports torch, numpy and the
 port only.
 
-The capture is a seeded two-tone complex64 array served by the port's
-in-memory dataset, so the request's host read, assembly and copies run as
-they do for a Digital RF capture, without HDF5 files (the reader needs
-h5py).
+The captures are seeded two-tone complex64 arrays served by the port's
+in-memory dataset, so the host reads, assembly and copies run as they do
+for a Digital RF capture, without HDF5 files (the reader needs h5py).
 """
 
 from __future__ import annotations
@@ -25,7 +34,27 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
+
+#: linear-power tolerance of a kernel against its plain version (the JAX
+#: package's own kernel-vs-XLA tolerance)
+LIN = dict(rtol=2e-4, atol=1e-6)
+#: B4 against its plain version: at nfft 2^20 a white-noise bin's power is
+#: ~1/nfft, so an absolute floor bounds nothing; the relative tolerance the
+#: JAX package holds its own big kernel to, plus 1e-4 of the column's mean
+B4_RTOL, B4_MEAN_ATOL = 2e-3, 1e-4
+#: display colour range of the streaming tiles (dBFS): full-scale tones and
+#: their sidelobes, with the floor above the captures' noise
+COLOR_RANGE_DB = (-80.0, 0.0)
+
+
+def live_samples(sr: int) -> int:
+    """Samples of the live engine's capture at ``sr``: 31 s to start with
+    (a 30 s window plus one), then 5.5 s of appends and two 2^20-sample
+    blocks (rounded up to whole 16-sample tone periods)."""
+    return 31 * sr + 6 * sr + 2 * (1 << 20)
 
 
 def fail(msg: str) -> None:
@@ -55,6 +84,561 @@ def two_tone(n: int, sample_rate: float, freqs_hz, noise_rms: float,
     return x.astype(np.complex64)
 
 
+def long_two_tone(n: int, noise_rms: float, seed: int):
+    """two_tone's tones at sample_rate/16 and /8 (each a 16-sample period,
+    tiled) plus float32 white noise: (n, 2) complex64 for n a multiple of
+    16, made fast enough for tens of seconds at 1 MS/s."""
+    import numpy as np
+
+    k = np.arange(16)
+    period = np.stack([np.exp(2j * np.pi * k / 16), np.exp(2j * np.pi * k / 8)],
+                      axis=1).astype(np.complex64)
+    x = np.tile(period, (n // 16, 1))
+    rng = np.random.default_rng(seed)
+    noise = rng.standard_normal((n, 2, 2), dtype=np.float32)
+    noise *= np.float32(noise_rms / np.sqrt(2.0))
+    x += noise.view(np.complex64)[..., 0]
+    return x
+
+
+def event_ms(fn, iters=50, warm=5):
+    """Mean device ms per call over ``iters`` calls, by CUDA events."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def in_turns(plain_fn, kernel_fn, iters=50):
+    """plain, kernel, kernel, plain on one card: (kernel, plain) ms."""
+    t = [event_ms(plain_fn, iters), event_ms(kernel_fn, iters),
+         event_ms(kernel_fn, iters), event_ms(plain_fn, iters)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+
+
+def wall_ms(fn, n=100, warm=5):
+    """(p50, p90) wall ms per call."""
+    import numpy as np
+
+    walls = []
+    for i in range(n + warm):
+        t0 = time.perf_counter()
+        fn()
+        if i >= warm:
+            walls.append(time.perf_counter() - t0)
+    return [float(v) for v in np.percentile(walls, [50, 90]) * 1e3]
+
+
+def _wrappers():
+    from pyspectrogram_tpu_torch.kernels import (
+        big_cuda,
+        median_cuda,
+        stream_cuda,
+        sti_cuda,
+    )
+
+    return {"sti_psd": sti_cuda.sti_psd_cuda,
+            "median": median_cuda.median_over_time_cuda,
+            "stream_psd": stream_cuda.stream_psd_cuda,
+            "big_psd": big_cuda.big_psd_cuda}
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in _wrappers().items()}
+
+
+def add_counts(total: dict, run: dict) -> None:
+    for k, v in run.items():
+        total[k] += v
+
+
+def db_diff(got, want, floor_db=60.0, axis=-1):
+    """Largest dB difference on bins within ``floor_db`` of their column's
+    peak (``axis`` the frequency axis)."""
+    import numpy as np
+
+    keep = want >= want.max(axis=axis, keepdims=True) - floor_db
+    return float(np.abs(got - want)[keep].max())
+
+
+def check_tiles(got, want, what: str) -> int:
+    """Two uint8 tiles within one level on <= 0.1% of pixels; returns the
+    pixels that differ."""
+    import numpy as np
+
+    check(got.shape == want.shape, f"{what}: tiles of {got.shape} and "
+                                   f"{want.shape}")
+    d = np.abs(got.astype(int) - want.astype(int))
+    n = int(np.count_nonzero(d))
+    check(d.max() <= 1 and n <= 1e-3 * got.size,
+          f"{what}: tiles differ on {n} pixels, by up to {d.max()}")
+    return n
+
+
+def phase_b3(dev, gen):
+    """B3 against psd_torch at starts t*hop on seeded normal planes."""
+    import torch
+
+    from pyspectrogram_tpu_torch.kernels import stream_cuda
+    from pyspectrogram_tpu_torch.ops import plain
+
+    err, cases = 0.0, 0
+    for nfft in (1024, 4096, 16384, 32768):
+        for hop in (nfft // 2, nfft // 4, 3 * nfft // 8 + 12):
+            for mode, nint in (("welch", 1), ("welch", 2), ("parity", 2)):
+                for nsub in (1, 2):
+                    for k in (1, 5, 32):
+                        width = nfft * nint - hop + k * hop
+                        x = torch.randn((2 * nsub, width), generator=gen,
+                                        device=dev)
+                        kw = dict(nfft=nfft, nint=nint, mode=mode)
+                        got = stream_cuda.stream_psd_cuda(x, hop=hop, **kw)
+                        starts = torch.arange(k, dtype=torch.int32,
+                                              device=dev) * hop
+                        want = plain.psd_torch(x, starts, **kw)
+                        torch.cuda.synchronize()
+                        e = (got - want).abs().max().item()
+                        check(torch.allclose(got, want, **LIN),
+                              f"B3 disagrees at nfft={nfft} hop={hop} "
+                              f"mode={mode} nint={nint} nsub={nsub} k={k}: "
+                              f"max abs {e}")
+                        err = max(err, e)
+                        cases += 1
+    emit({"phase": "b3_vs_plain", "cases": cases, "max_abs_err": err, **LIN})
+    return err
+
+
+def b4_errors(got, want):
+    """(max abs error, max relative error, max error over the tolerance)
+    of B4's power against the plain version's."""
+    d = (got - want).abs()
+    lim = B4_RTOL * want.abs() + B4_MEAN_ATOL * want.mean(dim=-1,
+                                                           keepdim=True)
+    pos = want > 0
+    return (d.max().item(), (d[pos] / want[pos]).max().item(),
+            (d / lim).max().item())
+
+
+def phase_b4(dev, gen):
+    """B4 against psd_torch over its sizes, modes, dtypes and starts."""
+    import torch
+
+    from pyspectrogram_tpu_torch.kernels import big_cuda
+    from pyspectrogram_tpu_torch.ops import plain
+
+    err = rel = 0.0
+    cases = 0
+    for nfft in (1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20):
+        for mode, nint in (("welch", 1), ("welch", 2), ("parity", 2)):
+            for nsub in (1, 2):
+                for dtype in ("float32", "int16"):
+                    for contiguous in (True, False):
+                        ntime = 2 + cases % 3
+                        frame_len = nfft * nint
+                        nsamp = frame_len * ntime + (0 if contiguous
+                                                     else 4096 + 17)
+                        if dtype == "int16":
+                            x = torch.randint(-2 ** 14, 2 ** 14,
+                                              (2 * nsub, nsamp),
+                                              generator=gen, device=dev,
+                                              dtype=torch.int16)
+                            ref = 2.0 ** 15.5
+                        else:
+                            x = torch.randn((2 * nsub, nsamp), generator=gen,
+                                            device=dev)
+                            ref = 1.0
+                        if contiguous:
+                            starts = torch.arange(ntime, device=dev) * frame_len
+                        else:
+                            starts = torch.randint(0, nsamp - frame_len,
+                                                   (ntime,), generator=gen,
+                                                   device=dev)
+                        starts = starts.to(torch.int32)
+                        kw = dict(nfft=nfft, nint=nint, mode=mode, ref=ref)
+                        got = big_cuda.big_psd_cuda(x, starts, **kw)
+                        want = plain.psd_torch(x, starts, **kw)
+                        torch.cuda.synchronize()
+                        e, r, over = b4_errors(got, want)
+                        check(over <= 1.0,
+                              f"B4 disagrees at nfft={nfft} mode={mode} "
+                              f"nint={nint} nsub={nsub} {dtype} "
+                              f"contiguous={contiguous}: max rel {r}, "
+                              f"{over} x the tolerance")
+                        err, rel = max(err, e), max(rel, r)
+                        cases += 1
+    emit({"phase": "b4_vs_plain", "cases": cases, "max_abs_err": err,
+          "max_rel_err": rel, "rtol": B4_RTOL,
+          "atol_of_column_mean": B4_MEAN_ATOL})
+    return err
+
+
+def phase_big_requests(dev, ds, tones, launches):
+    """The written request at nfft 65536 and 2^20 through
+    StiPipeline.compute (prefetch branch, kernel B4)."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch import SpectrogramConfig
+    from pyspectrogram_tpu_torch.models import sti
+    from pyspectrogram_tpu_torch.ops import stft
+
+    chan = ds.channels[0]
+    sr = float(ds.sr_dict[chan])
+    for cfg in (SpectrogramConfig(nfft=1 << 16, nint=4, ntime=32),
+                SpectrogramConfig(nfft=1 << 20, nint=1, ntime=16)):
+        label = f"request_nfft{cfg.nfft}"
+        frame_len = cfg.nfft * cfg.nint
+        prefetch = 4 * cfg.ntime * frame_len * 4 >= sti.PREFETCH_MIN_BYTES
+        check(prefetch, f"{label}: expected the prefetch branch")
+        pipe = sti.StiPipeline(ds, cfg, device=dev)
+        reset_counts()
+        res = pipe.compute()
+        torch.cuda.synchronize()
+        run = read_counts()
+        check(run["big_psd"] > 0, f"{label}: B4 launched {run['big_psd']}x")
+        add_counts(launches, run)
+        med = res.sxx_med_dbfs
+        check(med.shape == (cfg.nfft, 2) and np.isfinite(med).all()
+              and res.mask.all(), f"{label}: median PSD of {med.shape}")
+        peaks = []
+        for s, f in enumerate(tones):
+            k = int(med[:, s].argmax())
+            peaks.append(float(med[k, s]))
+            check(abs(res.freqs[k] - f) <= sr / cfg.nfft
+                  and abs(med[k, s]) <= 0.1,
+                  f"{label}: sub {s} peak {med[k, s]} dBFS at "
+                  f"{res.freqs[k]} Hz, expected ~0 at {f}")
+        # the median is exact: np.median of the card's linear power
+        pm, starts, _ = sti.assemble_device_block(ds, chan, None,
+                                                  res.frame_starts, frame_len)
+        fn = stft.make_sti_fn_pm(nfft=cfg.nfft, nint=cfg.nint, mode=cfg.mode,
+                                 contiguous=True, return_linear=True)
+        out = fn(torch.from_numpy(pm).to(dev), torch.from_numpy(starts).to(dev))
+        lin = out["sxx"].cpu().numpy()
+        check(np.array_equal(out["sxx_med"].cpu().numpy(),
+                             np.median(lin, axis=0).astype(np.float32)),
+              f"{label}: the card's median is not np.median")
+        check(np.array_equal(np.moveaxis(out["sxx_med_dbfs"].cpu().numpy(),
+                                         -1, 0), med),
+              f"{label}: the request's median differs from a rerun")
+        ref = sti.StiPipeline(ds, cfg, device="cpu").compute()
+        check(np.array_equal(res.frame_starts, ref.frame_starts),
+              f"{label}: frame starts differ from the CPU run")
+        d = max(db_diff(med, ref.sxx_med_dbfs, axis=0),
+                db_diff(res.sxx_dbfs, ref.sxx_dbfs, axis=0))
+        check(d <= 1e-3, f"{label}: dB differs from the CPU run by {d}")
+        emit({"phase": label, "nfft": cfg.nfft, "nint": cfg.nint,
+              "ntime": cfg.ntime, "prefetch": prefetch, "peaks_dbfs": peaks,
+              "launches": run, "max_db_diff_vs_cpu": d})
+
+
+def phase_streaming(dev, card, x, sr):
+    """StreamingSti at the JAX bench's streaming shapes (bench.py:133-185),
+    against the same pushes on the CPU; then the push timings. Returns
+    (launch counts of the runs, B3 ms and plain ms on the overlap2048
+    push buffer, B3's error there)."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch.display.tile import make_tile_spec
+    from pyspectrogram_tpu_torch.kernels import stream_cuda
+    from pyspectrogram_tpu_torch.models.streaming import StreamingSti
+    from pyspectrogram_tpu_torch.ops import plain, stft
+
+    nfft, nsub, k = 4096, 2, 8
+    # the colour floor sits above the -96 dB noise floor, where two
+    # float32 FFTs (the card's, the CPU's) differ by ~1e-3 dB and would
+    # flip levels at random; the tones' peaks and sidelobes quantize
+    spec = make_tile_spec(stft.shifted_freqs(nfft, sr), (-500.0, 500.0),
+                          COLOR_RANGE_DB)
+    pm = np.ascontiguousarray(x.view(np.float32).T)     # (4, n) planes
+    total = {k_: 0 for k_ in read_counts()}
+    runs = [("exact", None, 256, "exact"), ("display", None, 256, "display"),
+            ("overlap2048", 2048, 256, "exact"),
+            ("overlap2048_scatter", 2048, 252, "exact")]
+    timing = {}
+    for label, hop, ring_len, precision in runs:
+        block_len = k * (hop or nfft)
+        n_push = ring_len // k + 8                      # wraps the ring
+        blocks = [pm[:, i * block_len:(i + 1) * block_len]
+                  for i in range(n_push)]
+        kw = dict(nfft=nfft, nint=1, nsub=nsub, block_len=block_len, hop=hop,
+                  ring_len=ring_len, precision=precision)
+        s = StreamingSti(device=dev, **kw)
+        sc = StreamingSti(device="cpu", **kw)
+        dev_blocks = [torch.from_numpy(b).to(dev) for b in blocks]
+        reset_counts()
+        st = s.init_state()
+        for b in dev_blocks:
+            st, _ = s.push(st, b, return_db=False)
+        snap, n_valid = s.snapshot(st)
+        tile, _ = s.snapshot_quantized(st, spec)
+        med = s.median_psd(st)
+        view, vmed = s.refresh_view(st, 32, 7, spec=spec, n_med=200)
+        torch.cuda.synchronize()
+        run = read_counts()
+        want_kernel = "sti_psd" if hop is None else "stream_psd"
+        check(run[want_kernel] > 0 and run["median"] > 0,
+              f"stream {label}: launches {run}")
+        add_counts(total, run)
+        stc = sc.init_state()
+        for b in blocks:
+            stc, _ = sc.push(stc, torch.from_numpy(b), return_db=False)
+        check(st.total_cols == stc.total_cols == n_push * k
+              and n_valid == ring_len, f"stream {label}: counters")
+        d = max(db_diff(snap, sc.snapshot(stc)[0]),
+                db_diff(med, sc.median_psd(stc)),
+                db_diff(vmed, sc.refresh_view(stc, 32, 7, spec=spec,
+                                              n_med=200)[1]))
+        check(d <= 1e-3, f"stream {label}: dB differs from the CPU run by {d}")
+        n_off = check_tiles(tile, sc.snapshot_quantized(stc, spec)[0],
+                            f"stream {label} snapshot")
+        n_off += check_tiles(view, sc.refresh_view(stc, 32, 7, spec=spec,
+                                                   n_med=200)[0],
+                             f"stream {label} refresh view")
+        ring = st.ring.cpu().numpy()
+        check(np.array_equal(stft.median_over_time(st.ring).cpu().numpy(),
+                             np.median(ring, axis=0).astype(np.float32)),
+              f"stream {label}: the ring's median is not np.median")
+        line = {"phase": f"stream_{label}", "nfft": nfft, "nsub": nsub,
+                "cols_per_block": k, "hop": hop or nfft,
+                "ring_len": ring_len, "pushes": n_push, "launches": run,
+                "max_db_diff_vs_cpu": d, "tile_pixels_off_by_one": n_off}
+        if ring_len == 256:
+            # push time: CUDA events around each of 300 pushes, warm
+            blk = dev_blocks[0]
+            for _ in range(20):
+                st, _ = s.push(st, blk, return_db=False)
+            evs = [(torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True)) for _ in range(300)]
+            t0 = time.perf_counter()
+            for a, b in evs:
+                a.record()
+                st, _ = s.push(st, blk, return_db=False)
+                b.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / len(evs) * 1e3
+            ms = np.array([a.elapsed_time(b) for a, b in evs])
+            p50 = float(np.percentile(ms, 50))
+            line.update(card=card, push_n=len(evs), push_p50_ms=p50,
+                        push_p90_ms=float(np.percentile(ms, 90)),
+                        push_wall_mean_ms=wall,
+                        push_samples_per_s=block_len * nsub / (p50 * 1e-3))
+            timing[label] = p50
+        emit(line)
+    # B3 against psd_torch on the overlap2048 push buffer (carry + block)
+    buf = torch.from_numpy(pm[:, :2048 + k * 2048].copy()).to(dev)
+    starts = torch.arange(k, dtype=torch.int32, device=dev) * 2048
+    got = stream_cuda.stream_psd_cuda(buf, nfft=nfft, hop=2048)
+    want = plain.psd_torch(buf, starts, nfft=nfft)
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, **LIN), f"B3 on the push buffer: {err}")
+    b3_ms, b3_plain_ms = in_turns(
+        lambda: plain.psd_torch(buf, starts, nfft=nfft),
+        lambda: stream_cuda.stream_psd_cuda(buf, nfft=nfft, hop=2048),
+        iters=200)
+    emit({"phase": "timing_b3_overlap2048", "card": card, "nfft": nfft,
+          "hop": 2048, "k": k, "nsub": nsub, "b3_max_abs_err": err,
+          "b3_ms": b3_ms, "b3_plain_ms": b3_plain_ms})
+    return total, b3_ms, b3_plain_ms, err
+
+
+def phase_live(dev, card, x, sr):
+    """LiveStreamEngine at full width over an in-memory capture that grows
+    from the first 31 s of ``x`` (two tones at ``sr``):
+    cold start, ticks after appends, exact median, checkpoint + resume bit
+    for bit, tick timing; the same at nfft 2^20 (B4); and the engine on
+    the CPU at a 1 s window as the reference. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch import SpectrogramConfig
+    from pyspectrogram_tpu_torch.io.memory import MemoryDataset
+    from pyspectrogram_tpu_torch.kernels import median_cuda
+    from pyspectrogram_tpu_torch.ops import stft
+    from pyspectrogram_tpu_torch.ops.plain import to_dbfs
+    from pyspectrogram_tpu_torch.runtime import LiveStreamEngine
+
+    tones = [sr / 16.0, sr / 8.0]
+    big = 1 << 20
+    n0 = 31 * sr
+    pos = n0
+    ds = MemoryDataset(x[:n0], sr)
+    cfg = SpectrogramConfig(nfft=4096, hop=2048, ntime=100,
+                            stream_seconds=30.0, display_tile=True,
+                            color_range_db=COLOR_RANGE_DB, streaming=True)
+    total = {k: 0 for k in read_counts()}
+
+    def grow(n):
+        nonlocal pos
+        ds.append(x[pos:pos + n])
+        pos += n
+        ds.bnds_update()
+
+    def check_peaks(res, label):
+        med = res.sxx_med_dbfs
+        for s, f in enumerate(tones):
+            k = int(med[:, s].argmax())
+            check(abs(res.freqs[k] - f) <= sr / len(res.freqs)
+                  and abs(med[k, s]) <= 0.1,
+                  f"{label}: sub {s} peak {med[k, s]} dBFS at "
+                  f"{res.freqs[k]} Hz")
+        check(res.mask.all() and res.tile.dtype == np.uint8
+              and res.tile.shape[1] == 2, f"{label}: mask/tile")
+        return [float(med[:, s].max()) for s in range(2)]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = LiveStreamEngine(ds, cfg, dev)
+    res = eng.tick(cfg)
+    cold_s = time.perf_counter() - t0
+    ring_len = eng.sti.ring_len
+    ring_bytes = eng.state.ring.numel() * 4
+    # at 1 MS/s: 14,649 columns of hop 2048 in 30 s, 32 per push, a
+    # 14,656-row ring of 2 x 4096 float32 bins (480 MB)
+    W = -(-30 * sr // 2048)
+    check((eng.window_cols, eng.cols_per_block, ring_len)
+          == (W, 32, -(-W // 32) * 32) and ring_bytes == ring_len * 2 * 4096 * 4,
+          f"live geometry {eng.window_cols}, {eng.cols_per_block}, "
+          f"{ring_len}")
+    check_peaks(res, "live cold start")
+    reads = []
+    for _ in range(3):
+        read0, next0 = eng.samples_read, eng.next_sample
+        grow(sr)
+        res = eng.tick(cfg)
+        # O(delta): every sample read is pushed once, and the cursor
+        # stops within one block of the data's end
+        check(eng.samples_read - read0 == eng.next_sample - next0
+              and 0 <= pos - eng.next_sample < eng.block_len,
+              f"live tick read {eng.samples_read - read0} samples")
+        reads.append(eng.samples_read - read0)
+    peaks = check_peaks(res, "live tick")
+    torch.cuda.synchronize()
+    run = read_counts()
+    check(run["stream_psd"] > 0 and run["median"] > 0,
+          f"live engine launches {run}")
+    add_counts(total, run)
+    # the tick's median is exact: np.median of the read-back window
+    rows = torch.from_numpy((eng.state.total_cols - W + np.arange(W))
+                            % ring_len).to(dev)
+    window = eng.state.ring.index_select(0, rows)
+    med_lin = stft.median_over_time(window)
+    check(np.array_equal(med_lin.cpu().numpy(),
+                         np.median(window.cpu().numpy(), axis=0)
+                         .astype(np.float32)),
+          "live: the window's median is not np.median")
+    check(np.array_equal(res.sxx_med_dbfs, np.moveaxis(
+        to_dbfs(med_lin, cfg.eps).cpu().numpy(), -1, 0)),
+          "live: the tick's median is not the window's")
+    # checkpoint, resume on the card, append, tick both: bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ck = eng.save(Path(tmp) / "live.npz")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng2 = LiveStreamEngine.resume(ds, cfg, ck, dev)
+        resume_s = time.perf_counter() - t0
+    grow(sr // 2)
+    ra, rb = eng.tick(cfg), eng2.tick(cfg)
+    for f in ("tile", "sxx_med_dbfs", "frame_starts", "times", "mask"):
+        check(np.array_equal(getattr(ra, f), getattr(rb, f)),
+              f"live: the resumed engine differs in {f}")
+    del eng2
+    # tick timing: 0.1 s of samples appended before each tick
+    walls = []
+    for _ in range(20):
+        ds.append(x[pos:pos + sr // 10])
+        pos += sr // 10
+        t0 = time.perf_counter()
+        ds.bnds_update()
+        eng.tick(cfg)
+        walls.append(time.perf_counter() - t0)
+    tick_p50, tick_p90 = (float(v) for v in
+                          np.percentile(walls, [50, 90]) * 1e3)
+    b2_ms = event_ms(lambda: median_cuda.median_over_time_cuda(window),
+                     iters=5, warm=1)
+    gather_ms = event_ms(lambda: eng.state.ring.index_select(0, rows),
+                         iters=5, warm=1)
+    emit({"phase": "live_full_width", "card": card, "sample_rate": sr,
+          "nfft": cfg.nfft, "hop": cfg.hop, "stream_seconds": 30.0,
+          "window_cols": W, "cols_per_block": eng.cols_per_block,
+          "ring_len": ring_len, "ring_bytes": ring_bytes,
+          "cold_start_s": cold_s, "tick_samples_read": reads,
+          "peaks_dbfs": peaks, "launches": run, "save_s": save_s,
+          "resume_s": resume_s, "resumed_bit_equal": True,
+          "tick_n": len(walls), "tick_p50_ms": tick_p50,
+          "tick_p90_ms": tick_p90, "b2_window_ms": b2_ms,
+          "b2_share_of_tick_p50": b2_ms / tick_p50,
+          "window_gather_ms": gather_ms})
+    del eng, window
+
+    # nfft 2^20, contiguous hop, an 8 s window: B4 on the streaming path
+    cfg_big = SpectrogramConfig(nfft=big, ntime=100, stream_seconds=8.0,
+                                display_tile=True,
+                                color_range_db=COLOR_RANGE_DB, streaming=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    engb = LiveStreamEngine(ds, cfg_big, dev)
+    res = engb.tick(cfg_big)
+    cold_big_s = time.perf_counter() - t0
+    for _ in range(2):
+        grow(big)
+        res = engb.tick(cfg_big)
+    torch.cuda.synchronize()
+    run_big = read_counts()
+    check(run_big["big_psd"] > 0, f"live 2^20 launches {run_big}")
+    add_counts(total, run_big)
+    peaks_big = check_peaks(res, "live 2^20")
+    emit({"phase": "live_nfft1048576", "card": card, "nfft": big,
+          "stream_seconds": 8.0, "window_cols": engb.window_cols,
+          "cols_per_block": engb.cols_per_block, "cold_start_s": cold_big_s,
+          "peaks_dbfs": peaks_big, "launches": run_big})
+    del engb
+
+    # the engine on the card against the engine on the CPU, 1 s window
+    for c in (cfg.replace(stream_seconds=1.0),
+              cfg_big.replace(stream_seconds=1.0)):
+        n_small = 2 * max(sr, big)
+        small = MemoryDataset(x[:n_small], sr)
+        e_dev = LiveStreamEngine(small, c, dev)
+        e_cpu = LiveStreamEngine(small, c, "cpu")
+        d = n_off = 0
+        for i in range(3):
+            if i:
+                small.append(x[n_small + (i - 1) * big:n_small + i * big])
+                small.bnds_update()
+            a, b = e_dev.tick(c), e_cpu.tick(c)
+            check(a is not None and b is not None,
+                  f"live nfft {c.nfft}: no column after tick {i}")
+            for f in ("frame_starts", "times", "mask", "freqs"):
+                check(np.array_equal(getattr(a, f), getattr(b, f)),
+                      f"live nfft {c.nfft}: {f} differs from the CPU engine")
+            d = max(d, db_diff(a.sxx_med_dbfs, b.sxx_med_dbfs, axis=0))
+            n_off += check_tiles(a.tile, b.tile, f"live nfft {c.nfft}")
+        check(d <= 1e-3, f"live nfft {c.nfft}: median dB differs from the "
+                         f"CPU engine by {d}")
+        emit({"phase": f"live_vs_cpu_nfft{c.nfft}", "stream_seconds": 1.0,
+              "ticks": 3, "max_db_diff_vs_cpu": d,
+              "tile_pixels_off_by_one": n_off})
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -65,7 +649,12 @@ def main() -> int:
 
     from pyspectrogram_tpu_torch import SpectrogramConfig
     from pyspectrogram_tpu_torch.io.memory import MemoryDataset
-    from pyspectrogram_tpu_torch.kernels import _build, median_cuda, sti_cuda
+    from pyspectrogram_tpu_torch.kernels import (
+        _build,
+        big_cuda,
+        median_cuda,
+        sti_cuda,
+    )
     from pyspectrogram_tpu_torch.models import sti
     from pyspectrogram_tpu_torch.ops import plain, stft
 
@@ -145,6 +734,12 @@ def main() -> int:
                 b2_cases += 1
     emit({"phase": "b2_vs_plain", "cases": b2_cases, "max_abs_err": 0.0})
 
+    # B3 and B4 against their plain versions
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    b3_err = phase_b3(dev, gen)
+    b4_err = phase_b4(dev, gen)
+
     # phase 4: the main path at real size, through StiPipeline.compute
     sr = 1_000_000
     tones = [sr / 16.0, sr / 8.0]
@@ -157,23 +752,22 @@ def main() -> int:
     requests = [("headline", headline),
                 ("display_tile", headline.replace(display_tile=True)),
                 ("reference_default", SpectrogramConfig())]
-    launches = {"sti_psd": 0, "median": 0}
+    launches = {k: 0 for k in read_counts()}
     blocks = {}
     for label, cfg in requests:
         frame_len = cfg.nfft * cfg.nint
         # two subchannels: four float32 planes
         prefetch = 4 * cfg.ntime * frame_len * 4 >= sti.PREFETCH_MIN_BYTES
         pipe = sti.StiPipeline(ds, cfg, device=dev)
-        sti_cuda.sti_psd_cuda.launches = 0
-        median_cuda.median_over_time_cuda.launches = 0
+        reset_counts()
         res = pipe.compute()
         torch.cuda.synchronize()
-        n_b1 = sti_cuda.sti_psd_cuda.launches
-        n_b2 = median_cuda.median_over_time_cuda.launches
+        run = read_counts()
+        n_b1 = run["sti_psd"]
+        n_b2 = run["median"]
         check(n_b1 > 0 and n_b2 > 0,
               f"{label}: the request launched B1 {n_b1}x and B2 {n_b2}x")
-        launches["sti_psd"] += n_b1
-        launches["median"] += n_b2
+        add_counts(launches, run)
         # the host-assembled block through the device half alone: the
         # same kernels on the same samples, so equal bit for bit to what
         # compute() (prefetch branch or not) returned
@@ -244,34 +838,6 @@ def main() -> int:
     # phase 5: the kernels against their plain versions on the main path's
     # own tensors, then timing: CUDA events for device work, the wall
     # clock for whole requests
-    def event_ms(fn, iters=50, warm=5):
-        for _ in range(warm):
-            fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / iters
-
-    def in_turns(plain_fn, kernel_fn):
-        """plain, kernel, kernel, plain on one card: (kernel, plain) ms."""
-        t = [event_ms(plain_fn), event_ms(kernel_fn), event_ms(kernel_fn),
-             event_ms(plain_fn)]
-        return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-
-    def wall_ms(fn, n=100, warm=5):
-        walls = []
-        for i in range(n + warm):
-            t0 = time.perf_counter()
-            fn()
-            if i >= warm:
-                walls.append(time.perf_counter() - t0)
-        return [float(v) for v in np.percentile(walls, [50, 90]) * 1e3]
-
     timing = {}
     for label in ("headline", "reference_default"):
         cfg, pm, starts, mask, n_st = blocks[label]
@@ -342,6 +908,38 @@ def main() -> int:
           "nint": nint, "ntime": ntime, "nsub": 2, "b1_max_abs_err": err,
           "b1_ms": b1_big_ms, "b1_plain_ms": b1_big_plain_ms})
 
+    # the other paths, on a long two-tone capture at 1 MS/s: the written
+    # request at nfft >= 65536 over its first 31 s, the streaming core, and
+    # the live engine, which grows a capture from it
+    x_long = long_two_tone(live_samples(sr), noise_rms=1e-3, seed=2)
+    phase_big_requests(dev, MemoryDataset(x_long[:31 * sr], sr), tones,
+                       launches)
+    stream_counts, b3_ms, b3_plain_ms, b3_push_err = phase_streaming(
+        dev, card, x_long[:2 * sr], sr)
+    add_counts(launches, stream_counts)
+    add_counts(launches, phase_live(dev, card, x_long, sr))
+    del x_long
+
+    # B4 at the written request's shapes: 65536 x 4 x 32 and 2^20 x 1 x 16
+    b4 = {}
+    for nfft, nint, ntime in ((1 << 16, 4, 32), (1 << 20, 1, 16)):
+        xd = torch.randn((4, nfft * nint * ntime), generator=gen, device=dev)
+        sd = torch.arange(ntime, dtype=torch.int32, device=dev) * nfft * nint
+        psd_kw = dict(nfft=nfft, nint=nint, mode="welch")
+        e, r, over = b4_errors(big_cuda.big_psd_cuda(xd, sd, **psd_kw),
+                               plain.psd_torch(xd, sd, **psd_kw))
+        check(over <= 1.0, f"B4 at nfft {nfft}: max rel {r}")
+        b4_err = max(b4_err, e)
+        b4[nfft] = in_turns(lambda: plain.psd_torch(xd, sd, **psd_kw),
+                            lambda: big_cuda.big_psd_cuda(xd, sd, **psd_kw),
+                            iters=20)
+        n_proc = nfft * nint * ntime * 2
+        emit({"phase": f"timing_b4_nfft{nfft}", "card": card, "nfft": nfft,
+              "nint": nint, "ntime": ntime, "nsub": 2,
+              "b4_max_abs_err": e, "b4_max_rel_err": r,
+              "b4_ms": b4[nfft][0], "b4_plain_ms": b4[nfft][1],
+              "b4_samples_per_s": n_proc / (b4[nfft][0] * 1e-3)})
+
     head = timing["headline"]
     emit({"kernels": [
         {"name": "sti_psd", "route": "cuda",
@@ -354,7 +952,20 @@ def main() -> int:
          "replaces": "pyspectrogram_tpu/kernels/median_pallas.py:77",
          "launches": launches["median"], "max_abs_err": 0.0,
          "ms": head["b2_ms"], "plain_ms": head["b2_plain_ms"]},
+        {"name": "stream_psd", "route": "cuda",
+         "source": "pyspectrogram_tpu_torch/csrc/stream_psd.cu",
+         "replaces": "pyspectrogram_tpu/kernels/sti_pallas.py:767",
+         "launches": launches["stream_psd"],
+         "max_abs_err": max(b3_err, b3_push_err),
+         "ms": b3_ms, "plain_ms": b3_plain_ms},
+        {"name": "big_psd", "route": "cuda",
+         "source": "pyspectrogram_tpu_torch/csrc/big_psd.cu",
+         "replaces": "pyspectrogram_tpu/kernels/sti_pallas.py:970",
+         "launches": launches["big_psd"], "max_abs_err": b4_err,
+         "ms": b4[1 << 16][0], "plain_ms": b4[1 << 16][1]},
     ]})
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was never launched on the port's paths")
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -5,7 +5,8 @@ its bounds, rate, full-scale reference and channel maps, and
 ``reader.read_vector_raw`` with the Digital RF reader's semantics (storage
 dtype, zero fill and a False mask outside the written span). A request then
 runs end to end, host assembly and prefetch branch included, without
-Digital RF files or h5py.
+Digital RF files or h5py; ``append`` grows the capture for the live
+engine.
 """
 
 from __future__ import annotations
@@ -18,20 +19,43 @@ from pyspectrogram_tpu.io.reader import RFDataset
 
 
 class MemoryReader:
-    """The part of io.reader.DigitalRFReader that StiPipeline calls, over
-    one (n, nsub) array whose first row is absolute sample ``start``."""
+    """The part of io.reader.DigitalRFReader that StiPipeline and the live
+    engine call, over one (n, nsub) array whose first row is absolute
+    sample ``start``. :meth:`append` grows it, as a writer grows a
+    capture."""
 
     def __init__(self, channel: str, samples: np.ndarray, start: int):
         self.channel = channel
-        self.samples = samples
+        self._buf = samples
+        self._n = len(samples)
         self.start = int(start)
+
+    @property
+    def samples(self) -> np.ndarray:
+        """The held samples, (n, nsub)."""
+        return self._buf[:self._n]
+
+    def append(self, samples: np.ndarray) -> None:
+        """Extend the capture by ``samples`` ((m, nsub), or (m,) for one
+        subchannel, in the held dtype). The store grows geometrically, so
+        an append copies O(m) samples amortized."""
+        samples = np.asarray(samples, self._buf.dtype).reshape(
+            -1, self._buf.shape[1])
+        n = self._n + len(samples)
+        if n > len(self._buf):
+            buf = np.empty((max(n, 2 * len(self._buf)), self._buf.shape[1]),
+                           self._buf.dtype)
+            buf[:self._n] = self._buf[:self._n]
+            self._buf = buf
+        self._buf[self._n:n] = samples
+        self._n = n
 
     def get_bounds(self, channel: str):
         """(first, last) absolute sample, both inclusive."""
-        return self.start, self.start + len(self.samples) - 1
+        return self.start, self.start + self._n - 1
 
     def data_version(self, channel: str):
-        return 1, 0  # held data never changes
+        return 1, 0  # held samples never change; appends move the bounds
 
     def read_vector_raw(self, start_sample: int, n_samples: int,
                         channel: str, return_mask: bool = False):
@@ -73,3 +97,8 @@ class MemoryDataset(RFDataset):
         self.bnds = {channel: bnds}
         self.data_version = {channel: self.reader.data_version(channel)}
         self.time_bnds = (float(bnds[0] / sr), float(bnds[1] / sr))
+
+    def append(self, samples: np.ndarray) -> None:
+        """Grow the capture (MemoryReader.append); :meth:`bnds_update`
+        then sees the new bounds, as it sees a writer's."""
+        self.reader.append(samples)

@@ -1,28 +1,39 @@
-"""Build and load the port's CUDA kernels (``pyspectrogram_tpu_torch/csrc``).
+"""Build and load the port's CUDA kernels (``pyspectrogram_tpu_torch/csrc``),
+and the checks and constants the PSD kernels' wrappers share.
 
-Every ``*.cu`` source compiles in one ``nvcc`` call into a shared library
-with a plain C interface for Hopper (``sm_90a``), loaded with ctypes — the
-same pattern as the JAX package's native ingest (native/ingest.py). The
-build runs at the first CUDA use, never at import (a CPU-only machine has
-no ``nvcc``), and is keyed by a hash of the sources and flags, into the
+Each ``*.cu`` source compiles in its own ``nvcc`` process, all of them at
+once, into an object for Hopper (``sm_90a``); one more call links them into
+a shared library with a plain C interface, loaded with ctypes — the same
+pattern as the JAX package's native ingest (native/ingest.py). The build
+runs at the first CUDA use, never at import (a CPU-only machine has no
+``nvcc``), and is keyed by a hash of the sources and flags, into the
 checkout's ``build/kernels`` directory (``PSTORCH_BUILD_DIR`` overrides).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
+import torch
+
+from pyspectrogram_tpu_torch.ops.plain import psd_constants
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -51,9 +62,39 @@ def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def _run(cmd) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+
+
+def _compile(out: Path, srcs) -> None:
+    """nvcc every .cu source in parallel, then link the objects into
+    ``out`` (through a private name, published atomically, so a concurrent
+    process never loads a half-written library)."""
+    global build_seconds, build_log
+    nvcc = _nvcc()
+    cus = [p for p in srcs if p.suffix == ".cu"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / f"{p.stem}.o" for p in cus]
+        with ThreadPoolExecutor(max_workers=len(cus)) as ex:
+            results = list(ex.map(
+                lambda po: _run([nvcc, *NVCC_FLAGS, "-c", "-o", str(po[1]),
+                                 str(po[0])]), zip(cus, objs)))
+        lib = Path(tmp) / out.name
+        if all(r.returncode == 0 for r in results):
+            results.append(_run([nvcc, *ARCH, "-shared", "-o", str(lib),
+                                 *map(str, objs)]))
+        build_seconds = time.perf_counter() - t0
+        build_log = "".join(r.stdout + r.stderr for r in results)
+        bad = [r.returncode for r in results if r.returncode]
+        if bad:
+            raise RuntimeError(f"nvcc failed ({bad[0]}):\n{build_log}")
+        os.replace(lib, out)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    global _LIB, build_seconds, build_log
+    global _LIB
     with _LOCK:
         if _LIB is not None:
             return _LIB
@@ -65,28 +106,19 @@ def library() -> ctypes.CDLL:
         out = _build_dir() / f"libpstorch-{h.hexdigest()[:16]}.so"
         if not out.exists():
             out.parent.mkdir(parents=True, exist_ok=True)
-            # compile to a private name, then publish atomically, so a
-            # concurrent process never loads a half-written library
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(p) for p in srcs if p.suffix == ".cu"]]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True,
-                                 timeout=900)
-            build_seconds = time.perf_counter() - t0
-            build_log = res.stdout + res.stderr
-            if res.returncode:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{build_log}")
-            os.replace(tmp, out)
+            _compile(out, srcs)
         lib = ctypes.CDLL(str(out))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.pst_sti_psd.argtypes = [vp, i32, i64, i32, vp, i32, i32, i32,
-                                    vp, vp, ctypes.c_float, vp, vp, vp]
-        lib.pst_sti_psd.restype = i32
+        psd_args = [vp, i32, i64, i32, vp, i32, i32, i32, vp, vp,
+                    ctypes.c_float, vp, vp, vp]
+        lib.pst_sti_psd.argtypes = psd_args
+        lib.pst_big_psd.argtypes = psd_args
+        lib.pst_stream_psd.argtypes = [vp, i64, i32, i32, i32, i32, i32, vp,
+                                       vp, ctypes.c_float, vp, vp, vp]
         lib.pst_median.argtypes = [vp, i32, i64, vp, vp]
-        lib.pst_median.restype = i32
+        for fn in (lib.pst_sti_psd, lib.pst_big_psd, lib.pst_stream_psd,
+                   lib.pst_median):
+            fn.restype = i32
         _LIB = lib
         return _LIB
 
@@ -95,3 +127,47 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` code from a launch."""
     if rc:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The handle of ``t``'s device's current stream, for a launch."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=64)
+def psd_device_constants(nfft, nint, mode, window, ref, device):
+    """(window, twiddles W_N^m for m < N/2, scale 1/((sum w)^2 ref^2 nseg))
+    — float64 on the host like the JAX kernel's (sti_pallas.py:451-456),
+    cast to float32 on ``device``."""
+    win, scale = psd_constants(window, nfft, ref)
+    nseg = nint if mode == "welch" else 1
+    tw = np.exp(-2j * np.pi * np.arange(nfft // 2) / nfft).astype(np.complex64)
+    return (torch.from_numpy(win).to(device),
+            torch.from_numpy(tw.view(np.float32)).to(device),
+            float(np.float32(scale / nseg)))
+
+
+def check_psd_args(samples_pm: torch.Tensor, mode: str, dtypes,
+                   what: str) -> None:
+    """Raise unless ``samples_pm`` is a contiguous plane-major CUDA tensor
+    of one of ``dtypes`` and ``mode`` is a PSD mode (``what`` names the
+    kernel in the messages)."""
+    if samples_pm.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {samples_pm.device}")
+    if mode not in ("parity", "welch"):
+        raise ValueError(f"mode must be 'parity' or 'welch', got {mode!r}")
+    if samples_pm.dtype not in dtypes:
+        raise TypeError(f"samples must be {' or '.join(map(str, dtypes))} "
+                        f"planes, got {samples_pm.dtype}")
+    if samples_pm.dim() != 2 or samples_pm.shape[0] % 2 \
+            or not samples_pm.is_contiguous():
+        raise ValueError("samples must be a contiguous (nsub*2, nsamp) "
+                         f"plane-major tensor, got {tuple(samples_pm.shape)}")
+
+
+def check_starts(starts: torch.Tensor, samples_pm: torch.Tensor) -> None:
+    if starts.dtype != torch.int32 or starts.dim() != 1 \
+            or not starts.is_contiguous() \
+            or starts.device != samples_pm.device:
+        raise ValueError("starts must be a contiguous (ntime,) int32 tensor "
+                         "on the samples' device")

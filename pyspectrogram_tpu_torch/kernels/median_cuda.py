@@ -36,8 +36,7 @@ def median_over_time_cuda(p: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     rc = _build.library().pst_median(
-        p.data_ptr(), n, out.numel(), out.data_ptr(),
-        torch.cuda.current_stream(p.device).cuda_stream)
+        p.data_ptr(), n, out.numel(), out.data_ptr(), _build.stream_of(p))
     _build.check(rc, "median")
     median_over_time_cuda.launches += 1
     return out

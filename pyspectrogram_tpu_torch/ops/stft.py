@@ -6,9 +6,12 @@ One request's device half, run eagerly on the samples' own device:
     (Welch average) -> fftshift -> linear PSD ; exact median across time ;
     dBFS or the uint8 display tile
 
-The PSD runs in kernel B1 (kernels.sti_cuda) on a CUDA tensor whose nfft
-the kernel covers, and in ops.plain.psd_torch (torch.fft) everywhere else.
-The median runs a Batcher network for n <= 32 and kernel B2
+The PSD runs in kernel B1 (kernels.sti_cuda), or B4 (kernels.big_cuda) at
+nfft >= 65536, on a CUDA tensor whose nfft the kernels cover, and in
+ops.plain.psd_torch (torch.fft) everywhere else; a streaming push's
+columns follow :func:`stream_impl`, which adds kernel B3
+(kernels.stream_cuda) for overlapping hops. The median runs a Batcher
+network for n <= 32 and kernel B2
 (kernels.median_cuda) or its plain bisection above. Host constants — the
 window and the power scale — are built once in numpy float64, as the JAX
 package builds them, and cast to float32 on the device. No step uses a
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from pyspectrogram_tpu_torch.display.tile import quantize_tile_linear
-from pyspectrogram_tpu_torch.kernels import median_cuda, sti_cuda
+from pyspectrogram_tpu_torch.kernels import median_cuda, stream_cuda, sti_cuda
 from pyspectrogram_tpu_torch.ops.plain import psd_torch, to_dbfs
 from pyspectrogram_tpu_torch.ops.windows import WindowSpec
 
@@ -81,8 +84,9 @@ def median_over_time(p: torch.Tensor,
 
 def pick_impl(nfft: int, device, impl: str = "auto") -> str:
     """'cuda' | 'torch' — the PSD dispatch policy, the port's counterpart
-    of sti_pallas.pick_impl. "auto" takes kernel B1 for a CUDA device and
-    an nfft the kernel covers (kernels.sti_cuda.supported), torch.fft
+    of sti_pallas.pick_impl. "auto" takes kernel B1 (B4 at nfft >= 65536)
+    for a CUDA device and an nfft the kernels cover
+    (kernels.sti_cuda.supported: every power of two 256..2^20), torch.fft
     otherwise. An explicit "cuda" is an ask, not a hint: outside the
     kernel's range it raises (on a CPU tensor the kernel's wrapper runs
     its plain version)."""
@@ -96,6 +100,53 @@ def pick_impl(nfft: int, device, impl: str = "auto") -> str:
     if torch.device(device).type == "cuda" and sti_cuda.supported(nfft):
         return "cuda"
     return "torch"
+
+
+def stream_impl(nfft: int, nint: int, hop: int, device) -> str:
+    """'sti' | 'stream' | 'torch' — how a streaming push computes its
+    columns (column t framed at t*hop of carry + block), one policy for
+    models.streaming and the live engine's tail view:
+
+    - hop == frame_len: 'sti', kernel B1, or B4 at nfft >= 65536, at the
+      contiguous starts t*frame_len;
+    - hop < frame_len and nfft <= 32768: 'stream', kernel B3;
+    - hop < frame_len and nfft >= 65536: 'sti', kernel B4 at the starts
+      t*hop (it takes any starts);
+    - nfft below 256 or not a power of two, or a CPU device: 'torch',
+      ops.plain.psd_torch — the JAX package's XLA route, which no TPU
+      kernel covers either.
+
+    There is no per-subchannel branch (sti_pallas.pallas_per_sub_profitable
+    is a VMEM budget; the CUDA grid already has nsub as a dimension)."""
+    if torch.device(device).type != "cuda" or not sti_cuda.supported(nfft):
+        return "torch"
+    if hop < nfft * nint and nfft <= stream_cuda.MAX_NFFT:
+        return "stream"
+    return "sti"
+
+
+@functools.lru_cache(maxsize=64)
+def _hop_starts(k: int, hop: int, device: torch.device) -> torch.Tensor:
+    """(k,) int32 starts t*hop on ``device``, built once per push shape
+    (the kernels only read them)."""
+    return torch.arange(k, dtype=torch.int32, device=device) * hop
+
+
+def stream_columns(buf_pm: torch.Tensor, k: int, *, nfft: int, nint: int,
+                   hop: int, mode: str = "welch",
+                   window: WindowSpec = ("kaiser", 1.7),
+                   ref: float = 1.0) -> torch.Tensor:
+    """The k columns of a plane-major push buffer (nsub*2, frame_len - hop
+    + k*hop), column t framed at t*hop -> fftshifted linear power
+    (k, nsub, nfft), by :func:`stream_impl`."""
+    kw = dict(nfft=nfft, nint=nint, mode=mode, window=window, ref=ref)
+    impl = stream_impl(nfft, nint, hop, buf_pm.device)
+    if impl == "stream":
+        return stream_cuda.stream_psd_cuda(buf_pm, hop=hop, **kw)
+    starts = _hop_starts(k, hop, buf_pm.device)
+    if impl == "sti":
+        return sti_cuda.sti_psd_cuda(buf_pm, starts, **kw)
+    return psd_torch(buf_pm, starts, **kw)
 
 
 @functools.lru_cache(maxsize=256)

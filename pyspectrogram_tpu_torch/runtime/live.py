@@ -1,0 +1,430 @@
+"""Incremental live-streaming engine on one torch device: O(delta) work per
+refresh — the port of pyspectrogram_tpu/runtime/live.py without ``mesh``.
+
+The engine keeps a :class:`~pyspectrogram_tpu_torch.models.streaming.
+StreamingSti` ring + carry across ticks and, per tick, reads ONLY the
+samples written since the last pushed column, pushes them (host -> device
+from pinned memory, non-blocking), and serves the display from the ring:
+
+* every new sample is read exactly once (``samples_read`` counts them);
+* the refresh view is a stride-decimated trailing-window gather that
+  leaves the device as a uint8 tile or float dB rows (<= ntime rows);
+* the median PSD is computed on the device over the window's columns
+  (kernel B2 above 32 columns).
+
+The engine is rebuilt only when a SHAPE knob changes (:func:`_signature`);
+color-range and freq-window changes are display-edge knobs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from fractions import Fraction
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from pyspectrogram_tpu.io.reader import RFDataset
+from pyspectrogram_tpu.io.time_util import samples_to_datetime64
+from pyspectrogram_tpu.native import ingest as native_ingest
+from pyspectrogram_tpu.utils.config import SpectrogramConfig
+from pyspectrogram_tpu_torch.display.tile import (
+    make_tile_spec,
+    quantize_tile_linear,
+    tile_freqs,
+)
+from pyspectrogram_tpu_torch.models.sti import StiResult, _assemblable, to_device
+from pyspectrogram_tpu_torch.models.streaming import StreamingSti
+from pyspectrogram_tpu_torch.ops import stft
+from pyspectrogram_tpu_torch.ops.plain import to_dbfs
+from pyspectrogram_tpu_torch.runtime import checkpoint
+
+#: per-push block target (samples): big enough to amortize the launches,
+#: small enough that new data surfaces within a refresh tick (~0.07 s of
+#: samples at 1 MS/s) — the JAX engine's value
+TARGET_BLOCK_SAMPLES = 1 << 16
+#: device-memory cap for the column ring (float32 power columns)
+RING_BYTE_BUDGET = 512 << 20
+
+
+def _signature(cfg: SpectrogramConfig):
+    """The knobs whose change forces a ring rebuild (shapes and numerics
+    of the push; eps is in every dB/tile value, so it counts). Color
+    range, freq window, ntime and display_tile are display-edge knobs. The
+    hop entry is canonicalized to its effective value (None means
+    contiguous = nfft*nint). Equal to the JAX engine's signature, which
+    checkpoints of either package record."""
+    return (cfg.nfft, cfg.nint, cfg.mode, cfg.window, cfg.precision,
+            cfg.channel, float(cfg.stream_seconds), float(cfg.eps),
+            int(cfg.hop or cfg.nfft * cfg.nint))
+
+
+def _plane_major(raw: np.ndarray, isub: Optional[int], n: int) -> np.ndarray:
+    """A dense (n, nsub) storage-dtype read -> plane-major (nsub*2, n)
+    float32 or int16 (the native assembly of one contiguous frame)."""
+    if isub is not None:
+        raw = raw[:, isub : isub + 1]
+    return native_ingest.assemble_plane_major(
+        _assemblable(raw), np.asarray([0], np.int64), n)
+
+
+class LiveStreamEngine:
+    """One channel's incremental trailing-window stream over a (possibly
+    growing) dataset, on one torch device.
+
+    >>> eng = LiveStreamEngine(ds, cfg, device="cuda")
+    >>> res = eng.tick(cfg)    # push new samples, return an StiResult
+    """
+
+    def __init__(self, ds: RFDataset, cfg: SpectrogramConfig,
+                 device: Union[str, torch.device],
+                 target_block_samples: int = TARGET_BLOCK_SAMPLES,
+                 cols_per_block: Optional[int] = None,
+                 init_device_state: bool = True):
+        """``cols_per_block`` pins the push-block geometry explicitly
+        (resume() passes the checkpointed value so the rebuilt ring has
+        the same shape); by default it is derived from
+        ``target_block_samples`` and the data available right now.
+        ``init_device_state=False`` skips allocating the zeroed ring
+        (resume() installs a restored one instead — avoids holding two
+        full rings on the device during a large-window resume)."""
+        self.ds = ds
+        self.device = torch.device(device)
+        self.sig = _signature(cfg)
+        chan, isub = ds._split_entry(cfg.channel or ds.channels[0])
+        self.chan, self.isub = chan, isub
+        self.sr: Fraction = ds.sr_dict[chan]
+        self.ref = ds.ref_dict[chan]
+        self.nsub = 1 if isub is not None else len(ds.chan_2sub[chan])
+        frame_len = cfg.nfft * cfg.nint
+        # column spacing: contiguous by default; cfg.hop < frame_len
+        # overlaps columns (overlap-save: the carry holds the trailing
+        # frame_len - hop samples between pushes)
+        self.hop = int(cfg.hop or frame_len)
+        self.carry_len = frame_len - self.hop
+        self._iteration = -1
+        self.samples_read = 0                   # O(delta) observability
+
+        # trailing-window geometry: how many hop-spaced columns cover
+        # stream_seconds (reference streamtime, drfProc.py:241)
+        w = int(-(-(cfg.stream_seconds * self.sr) // self.hop))  # ceil
+        cap = max(1, RING_BYTE_BUDGET // (self.nsub * cfg.nfft * 4))
+        self.window_cols = max(1, min(w, cap))
+
+        # block size: ~target_block_samples, whole columns, and no larger
+        # than the initially-available data (frame-aware: a block of k
+        # columns needs carry_len + k*hop samples) so short/young
+        # captures still surface columns block by block
+        lo, hi = ds.bnds[chan]
+        if cols_per_block is not None:
+            k = int(cols_per_block)
+        else:
+            avail_cols = max(1, (hi - lo + 1 - self.carry_len) // self.hop)
+            k = max(1, min(target_block_samples // self.hop,
+                           avail_cols, self.window_cols))
+        self.cols_per_block = k
+        self.block_len = k * self.hop
+        # round the ring up to whole blocks: stores stay wrap-free
+        ring_len = -(-self.window_cols // k) * k
+
+        # tail view: complete columns that do not yet fill a whole push
+        # block still surface in the display (see _tail_view)
+        self._tail_pending = 0
+        self._tail_cache_key = None
+        self._tail_cache = None
+        self.tail_samples_read = 0              # peek-read observability
+        self._cfg = cfg                         # numerics knobs for the tail
+
+        self.sti = StreamingSti(
+            nfft=cfg.nfft, nint=cfg.nint, nsub=self.nsub,
+            block_len=self.block_len, hop=self.hop, ring_len=ring_len,
+            mode=cfg.mode, window=cfg.window, ref=self.ref, eps=cfg.eps,
+            precision=cfg.precision, device=self.device,
+        )
+        self.state = self.sti.init_state() if init_device_state else None
+        # the unfolded count of pushed columns (the state's counter folds)
+        self.total_cols = 0
+        # per-column validity, same rotating storage as the ring: a column
+        # computed over zero-filled gap samples is flagged, like the batch
+        # path's mask
+        self.col_mask = np.ones(ring_len, bool)
+        # gap shadow of the carry: with overlapping hops a column's
+        # validity spans carry + block
+        self._carry_mask = np.ones(self.carry_len, bool)
+        # anchor at the current trailing window (cold start reads at most
+        # one window). Column j's frame covers [start_sample + j*hop,
+        # + frame_len): the window's last frame ends at the data tail when
+        # the anchor backs off by the extra carry_len.
+        self.start_sample = max(
+            lo, hi + 1 - (self.window_cols * self.hop + self.carry_len))
+        self.next_sample = self.start_sample + self.carry_len
+        if init_device_state and self.carry_len:
+            self._seed_carry()
+
+    def _read(self, start: int, n: int):
+        """(plane-major block, sample mask) of ``n`` samples at ``start``."""
+        raw, mask = self.ds.reader.read_vector_raw(start, n, self.chan,
+                                                   return_mask=True)
+        return _plane_major(raw, self.isub, n), np.asarray(mask, bool)
+
+    def _seed_carry(self) -> None:
+        """Overlapping hops only: pre-fill the carry with the frame_len -
+        hop samples before the first block, so column 0 covers
+        [start_sample, start_sample + frame_len) with real data (reads
+        before the capture start zero-fill and flag the gap mask)."""
+        pm, mask = self._read(self.start_sample, self.carry_len)
+        self.state.carry = to_device(pm.astype(np.float32), self.device)
+        self._carry_mask = mask
+        self.samples_read += self.carry_len
+
+    def _col_valid(self, m: np.ndarray, n: int) -> np.ndarray:
+        """Validity of ``n`` hop-spaced columns whose frames slide over
+        the sample mask ``m``: column t is valid iff m[t*hop : t*hop +
+        frame_len] has no gap (a gap-count prefix sum)."""
+        frame_len = self.hop + self.carry_len
+        bad = np.concatenate([[0], np.cumsum(~np.asarray(m, bool))])
+        t = np.arange(n) * self.hop
+        return bad[t + frame_len] - bad[t] == 0
+
+    # ----------------------------------------------------------- checkpoint
+    def save(self, path):
+        """Checkpoint the live session between ticks: the ring + carry plus
+        the host read cursor, so :meth:`resume` continues at the exact
+        next sample with no recompute. The file is the JAX engine's
+        format; either package resumes it."""
+        meta = {
+            "kind": "live_stream",
+            # json round-trip now so resume() compares like with like
+            "signature": json.loads(json.dumps(self.sig)),
+            "next_sample": int(self.next_sample),
+            "start_sample": int(self.start_sample),
+            "total_cols": int(self.total_cols),
+            "samples_read": int(self.samples_read),
+            "cols_per_block": int(self.cols_per_block),
+        }
+        return checkpoint.save_stream_state(
+            path, self.state, meta,
+            extra_arrays={"col_mask": self.col_mask,
+                          "carry_mask": self._carry_mask})
+
+    @classmethod
+    def resume(cls, ds: RFDataset, cfg: SpectrogramConfig, path,
+               device: Union[str, torch.device]) -> "LiveStreamEngine":
+        """Rebuild an engine from a :meth:`save` checkpoint (of either
+        package) on ``device`` and continue the stream: the next tick
+        reads from the saved cursor."""
+        state, meta = checkpoint.load_stream_state(path, device)
+        if meta.get("kind") != "live_stream":
+            raise ValueError(
+                f"{path} is not a live-stream checkpoint "
+                f"(kind={meta.get('kind')!r})")
+        eng = cls(ds, cfg, device,
+                  cols_per_block=int(meta["cols_per_block"]),
+                  init_device_state=False)
+        saved_sig = meta["signature"]
+        if len(saved_sig) == len(eng.sig) - 1:
+            # pre-hop checkpoints were always contiguous: their effective
+            # hop is nfft*nint, so normalize instead of refusing them
+            saved_sig = list(saved_sig) + [
+                int(saved_sig[0]) * int(saved_sig[1])]
+        if json.loads(json.dumps(eng.sig)) != saved_sig:
+            raise ValueError(
+                f"checkpoint was written with different shape knobs "
+                f"({meta['signature']} vs {list(eng.sig)}); pass the "
+                f"config the stream was started with")
+        # the signature can't see dataset-derived geometry (nsub)
+        want_ring = (eng.sti.ring_len, eng.nsub, cfg.nfft)
+        want_carry = (eng.nsub * 2, eng.sti.frame_len - eng.sti.hop)
+        if (tuple(state.ring.shape) != want_ring
+                or tuple(state.carry.shape) != want_carry):
+            raise ValueError(
+                f"stream-state geometry mismatch: checkpoint ring/carry "
+                f"{tuple(state.ring.shape)}/{tuple(state.carry.shape)} vs "
+                f"this dataset's {want_ring}/{want_carry}")
+        # the counter folds (fold_total), so an unbounded host cursor
+        # compares through the fold
+        if state.total_cols != eng.sti.fold_total(int(meta["total_cols"])):
+            raise ValueError(
+                "torn checkpoint: device column count "
+                f"({state.total_cols}) disagrees with "
+                f"the host cursor ({meta['total_cols']}) — the state was "
+                "saved mid-tick; re-save from a quiesced session")
+        eng.state = state
+        eng.total_cols = int(meta["total_cols"])
+        eng.start_sample = int(meta["start_sample"])
+        eng.next_sample = int(meta["next_sample"])
+        eng.samples_read = int(meta["samples_read"])
+        arrays = meta.get("arrays", {})
+        if "col_mask" in arrays:
+            eng.col_mask = np.asarray(arrays["col_mask"]).astype(bool)
+        cmask = arrays.get("carry_mask")
+        if cmask is not None and len(cmask) == eng.carry_len:
+            eng._carry_mask = np.asarray(cmask).astype(bool)
+        return eng
+
+    # ---------------------------------------------------------------- ingest
+    def _push_new(self) -> int:
+        """Read + push every complete new block; returns blocks pushed."""
+        lo, hi = self.ds.bnds[self.chan]
+        behind = hi + 1 - self.next_sample
+        max_backlog = self.window_cols * self.hop
+        if behind > max_backlog + self.block_len:
+            # the producer outran us by more than a whole window: restart
+            # the ring at the new trailing window instead of reading
+            # samples the ring would evict unseen (reads stay O(window))
+            self.state = self.sti.init_state()
+            self.total_cols = 0
+            self.col_mask[:] = True
+            self.start_sample = hi + 1 - max_backlog - self.carry_len
+            self.next_sample = self.start_sample + self.carry_len
+            self._carry_mask = np.ones(self.carry_len, bool)
+            if self.carry_len:
+                self._seed_carry()
+        n_blocks = 0
+        while hi + 1 - self.next_sample >= self.block_len:
+            pm, mask = self._read(self.next_sample, self.block_len)
+            rows = (self.total_cols
+                    + np.arange(self.cols_per_block)) % self.sti.ring_len
+            m = np.concatenate([self._carry_mask, mask])
+            self.col_mask[rows] = self._col_valid(m, self.cols_per_block)
+            if self.carry_len:
+                self._carry_mask = m[len(m) - self.carry_len:]
+            self.samples_read += self.block_len
+            self.state, _ = self.sti.push(
+                self.state, to_device(pm, self.device), return_db=False)
+            self.total_cols += self.cols_per_block
+            self.next_sample += self.block_len
+            n_blocks += 1
+        # complete columns beyond the cursor that do not yet fill a whole
+        # block (0..cols_per_block-1); the tail view surfaces them. The
+        # next unpushed column starts carry_len before the cursor.
+        avail = hi + 1 - (self.next_sample - self.carry_len)
+        frame_len = self.hop + self.carry_len
+        self._tail_pending = int(
+            max(0, (avail - frame_len) // self.hop + 1)
+            if avail >= frame_len else 0)
+        return n_blocks
+
+    # ------------------------------------------------------------- tail view
+    def _tail_view(self, spec, stride: int):
+        """Display rows for the pending tail: complete columns past the
+        read cursor that do not yet fill a whole push block, computed as a
+        side view by the push's own policy (ops.stft.stream_columns) —
+        the cursor does NOT advance, so ring pushes stay block-aligned and
+        checkpoints exact. Cached on (cursor, pending, crop, colour range):
+        a stopped writer's tail is computed once.
+
+        Returns (rows, cols, mask) continuing tick()'s stride grid
+        (absolute column j displayed iff (j - total + 1) % stride == 0),
+        or (None, None, None) when nothing lands on the grid. The median
+        stays ring-only."""
+        pending = self._tail_pending
+        grid = np.arange(stride - 1, pending, stride, dtype=np.int64)
+        if len(grid) == 0:
+            return None, None, None
+        qp = (None if spec is None
+              else tuple(np.asarray(spec.qparams, np.float32).tolist()))
+        key = (self.next_sample, pending,
+               None if spec is None else spec.crop_key(), qp)
+        if key == self._tail_cache_key:
+            rows, colmask = self._tail_cache
+        else:
+            # the next unpushed column starts carry_len before the read
+            # cursor; the last pending column's frame ends frame_len past
+            # its start
+            span = pending * self.hop + self.carry_len
+            pm, mask = self._read(self.next_sample - self.carry_len, span)
+            self.tail_samples_read += span
+            # pad to a pow2 column count, as the JAX engine's tail does
+            n = 1 << (pending - 1).bit_length()
+            pm = np.pad(pm.astype(np.float32),
+                        ((0, 0), (0, (n - pending) * self.hop)))
+            cfg = self._cfg
+            p = stft.stream_columns(
+                to_device(pm, self.device), n, nfft=cfg.nfft, nint=cfg.nint,
+                hop=self.hop, mode=cfg.mode, window=cfg.window, ref=self.ref)
+            view = (to_dbfs(p, cfg.eps) if spec is None
+                    else quantize_tile_linear(p, spec, cfg.eps, spec.qparams))
+            rows = view.cpu().numpy()[:pending]
+            colmask = self._col_valid(mask, pending)
+            self._tail_cache_key = key
+            self._tail_cache = (rows, colmask)
+        cols = self.total_cols + grid
+        return rows[grid], cols, colmask[grid]
+
+    # --------------------------------------------------------------- display
+    def tick(self, cfg: SpectrogramConfig) -> Optional[StiResult]:
+        """One refresh: ingest the delta, then build the display payload
+        from the ring (no recompute of already-pushed columns). Returns
+        None while the capture is still shorter than one column."""
+        self._push_new()
+        total = self.total_cols
+        if total == 0:
+            return None
+        self._iteration += 1
+
+        W = self.window_cols
+        n_target = max(1, min(cfg.ntime, W))
+        stride = -(-W // n_target)                       # ceil
+        n_disp = -(-W // stride)
+        cols = self.sti.strided_cols(self.state, n_disp, stride,
+                                     total_cols=total)
+        keep = cols >= 0
+
+        freqs = stft.shifted_freqs(cfg.nfft, self.sr)
+        spec = None
+        if cfg.display_tile:
+            spec = make_tile_spec(freqs, cfg.freq_window_khz,
+                                  cfg.color_range_db)
+        tile = plot_freqs = sxx_dbfs = None
+        view, med = self.sti.refresh_view(
+            self.state, n_disp, stride, spec=spec, n_med=W,
+            total_cols=total)
+        view = view[keep]
+        kept_cols = cols[keep]
+        mask = self.col_mask[kept_cols % self.sti.ring_len]
+        if self._tail_pending:
+            # complete columns past the read cursor that do not yet fill a
+            # push block surface every tick, so the newest complete column
+            # appears in the tick it completes
+            t_rows, t_cols, t_mask = self._tail_view(spec, stride)
+            if t_rows is not None:
+                view = np.concatenate([view, t_rows], axis=0)
+                kept_cols = np.concatenate([kept_cols, t_cols])
+                mask = np.concatenate([mask, t_mask])
+        if spec is not None:
+            tile, plot_freqs = view, tile_freqs(spec, freqs)
+        else:
+            sxx_dbfs = stft.to_reference_layout(view)
+        starts = self.start_sample + kept_cols * self.hop
+        return StiResult(
+            iteration=self._iteration,
+            times=samples_to_datetime64(starts, self.sr),
+            freqs=freqs,
+            sxx_dbfs=sxx_dbfs,
+            sxx_med_dbfs=np.moveaxis(med, -1, 0),
+            sample_rate=self.sr,
+            frame_starts=np.asarray(starts),
+            mask=mask,
+            tile=tile,
+            plot_freqs=plot_freqs,
+        )
+
+
+@dataclasses.dataclass
+class _EngineSlot:
+    """Processor-side holder: rebuilds the engine when the config's shape
+    signature changes (a new ring is the correct semantics for a shape
+    change)."""
+
+    ds: RFDataset
+    device: Union[str, torch.device]
+    engine: Optional[LiveStreamEngine] = None
+
+    def tick(self, cfg: SpectrogramConfig) -> Optional[StiResult]:
+        sig = _signature(cfg)
+        if self.engine is None or self.engine.sig != sig:
+            self.engine = LiveStreamEngine(self.ds, cfg, self.device)
+        return self.engine.tick(cfg)

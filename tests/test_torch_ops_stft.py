@@ -19,7 +19,12 @@ from pyspectrogram_tpu.kernels.median_pallas import median_over_time_pallas
 from pyspectrogram_tpu.kernels.sti_pallas import make_pallas_sti_psd
 from pyspectrogram_tpu.ops import stft as jstft
 from pyspectrogram_tpu.ops.windows import get_window as jget_window
-from pyspectrogram_tpu_torch.kernels import median_cuda, sti_cuda
+from pyspectrogram_tpu_torch.kernels import (
+    big_cuda,
+    median_cuda,
+    stream_cuda,
+    sti_cuda,
+)
 from pyspectrogram_tpu_torch.ops import plain, stft
 from pyspectrogram_tpu_torch.ops.windows import get_window
 
@@ -162,7 +167,7 @@ def test_to_dbfs_matches_jax():
     (256, "cuda", "auto", "cuda"),
     (16384, "cuda", "auto", "cuda"),
     (32768, "cuda", "auto", "cuda"),     # the two-launch four-step split
-    (65536, "cuda", "auto", "torch"),    # beyond the kernel's range
+    (65536, "cuda", "auto", "cuda"),     # kernel B4, through sti_psd_cuda
     (128, "cuda", "auto", "torch"),      # below the kernel's floor
     (1000, "cuda", "auto", "torch"),     # not a power of two
     (4096, "cpu", "auto", "torch"),
@@ -173,7 +178,7 @@ def test_pick_impl_table(nfft, device, impl, want):
     assert stft.pick_impl(nfft, torch.device(device), impl) == want
 
 
-@pytest.mark.parametrize("nfft", [128, 1000, 65536])
+@pytest.mark.parametrize("nfft", [128, 1000, 1 << 21])
 def test_pick_impl_explicit_cuda_outside_range_raises(nfft):
     with pytest.raises(ValueError, match="covers power-of-two"):
         stft.pick_impl(nfft, torch.device("cuda"), "cuda")
@@ -188,6 +193,13 @@ def test_wrappers_refuse_other_devices():
                               nfft=1024)
     with pytest.raises(ValueError, match="no median kernel"):
         median_cuda.median_over_time_cuda(torch.empty((40, 8), device="meta"))
+    with pytest.raises(ValueError, match="no big STI kernel"):
+        big_cuda.big_psd_cuda(torch.empty((4, 1 << 17), device="meta"),
+                              torch.zeros(2, dtype=torch.int32), nfft=65536)
+    with pytest.raises(ValueError, match="no stream kernel"):
+        stream_cuda.stream_psd_cuda(torch.empty((4, 1024 + 3 * 512),
+                                                device="meta"),
+                                    nfft=1024, hop=512)
 
 
 def _stockham_numpy(x, tw=None):
@@ -229,17 +241,47 @@ def _four_step_numpy(x, n1=128, n2=256):
     return out
 
 
-@pytest.mark.parametrize("nfft", [256, 4096, 16384, 32768])
+#: the four-step splits (N1, N2) of csrc: B1 (and B3) at 32768, B4 above
+FOUR_STEP = {32768: (128, 256), 65536: (256, 256), 131072: (512, 256),
+             262144: (512, 512), 524288: (1024, 512),
+             1048576: (1024, 1024)}
+
+
+@pytest.mark.parametrize("nfft", [256, 4096, 16384, 32768, 65536, 131072,
+                                  262144, 524288, 1048576])
 def test_kernel_fft_index_plan(nfft):
-    """The kernel's butterfly, twiddle and output-bin indexing is the DFT
-    (the CUDA source runs only on the card; its plan is checked here),
-    the four-step split above one block's 16384 points included."""
+    """The kernels' butterfly, twiddle and output-bin indexing is the DFT
+    (the CUDA sources run only on the card; their plan is checked here):
+    one block up to 16384 points, the four-step split above, B4's
+    (N1, N2) table up to 1024 x 1024 included."""
     rng = np.random.default_rng(nfft)
     x = rng.standard_normal(nfft) + 1j * rng.standard_normal(nfft)
     plan = (_stockham_numpy(x) if nfft <= sti_cuda.ONE_BLOCK_MAX_NFFT
-            else _four_step_numpy(x))
+            else _four_step_numpy(x, *FOUR_STEP[nfft]))
     np.testing.assert_allclose(plan, np.fft.fft(x),
                                rtol=0, atol=1e-9 * np.sqrt(nfft))
+
+
+@pytest.mark.parametrize("contiguous", [True, False])
+@pytest.mark.parametrize("mode,nint", [("welch", 2), ("parity", 2)])
+def test_big_psd_plain_matches_pallas_kernel(mode, nint, contiguous):
+    """Kernel B4's plain version against the JAX package's 65536-point
+    kernel (interpret mode), contiguous and gathered, at the rtol the JAX
+    package holds that kernel to (test_pallas_kernel.py:467): at large
+    nfft a white-noise bin's power is ~1/nfft, so an absolute tolerance
+    bounds nothing there."""
+    nfft, ntime, nsub = 1 << 16, 2, 1
+    x, starts, _ = _planes(nfft, nint, ntime, nsub, "float32", seed=11,
+                           contiguous=contiguous)
+    kernel = make_pallas_sti_psd(nfft=nfft, nint=nint, mode=mode,
+                                 interpret=True, contiguous=contiguous)
+    want = np.asarray(kernel(jnp.asarray(x), jnp.asarray(starts)))
+    before = big_cuda.big_psd_cuda.launches
+    for fn in (big_cuda.big_psd_cuda, sti_cuda.sti_psd_cuda):
+        got = fn(torch.from_numpy(x), torch.from_numpy(starts), nfft=nfft,
+                 nint=nint, mode=mode)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=1e-9)
+    assert big_cuda.big_psd_cuda.launches == before  # CPU: plain version
 
 
 @pytest.mark.parametrize("spec", ["hann", "hamming", "blackman", "boxcar",

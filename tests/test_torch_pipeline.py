@@ -167,22 +167,28 @@ def test_cuda_device_raises_without_gpu(tone_capture):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing the port and running a request (prefetch branch included)
-    leaves jax out of the process; a fresh interpreter, since this one
-    already holds jax."""
+    """Importing the port and running a request (prefetch branch included),
+    a streaming push and a live tick leaves jax out of the process; a
+    fresh interpreter, since this one already holds jax."""
     code = textwrap.dedent(f"""
         import sys
+        import numpy as np
         import pyspectrogram_tpu_torch
         import pyspectrogram_tpu_torch.display.tile
         import pyspectrogram_tpu_torch.io.ingest
         import pyspectrogram_tpu_torch.io.memory
         import pyspectrogram_tpu_torch.kernels._build
+        import pyspectrogram_tpu_torch.kernels.big_cuda
         import pyspectrogram_tpu_torch.kernels.median_cuda
+        import pyspectrogram_tpu_torch.kernels.stream_cuda
         import pyspectrogram_tpu_torch.kernels.sti_cuda
         import pyspectrogram_tpu_torch.models.sti as sti
+        import pyspectrogram_tpu_torch.models.streaming as streaming
         import pyspectrogram_tpu_torch.ops.plain
         import pyspectrogram_tpu_torch.ops.stft
         import pyspectrogram_tpu_torch.ops.windows
+        import pyspectrogram_tpu_torch.runtime.checkpoint
+        import pyspectrogram_tpu_torch.runtime.live as live
         assert "jax" not in sys.modules, "import loaded jax"
         from pyspectrogram_tpu.io import RFDataset
         from pyspectrogram_tpu.io.synthetic import write_capture
@@ -193,6 +199,14 @@ def test_port_never_imports_jax(tmp_path):
                                                         display_tile=True)
         r = sti.StiPipeline(RFDataset({str(tmp_path)!r}), cfg, "cpu").compute()
         assert r.tile.shape[:2] == (40, 2)
+        s = streaming.StreamingSti(nfft=256, nsub=2, block_len=512, hop=128,
+                                   ring_len=8, device="cpu")
+        st, cols = s.push(s.init_state(), np.ones((4, 512), np.float32))
+        assert cols.shape == (4, 2, 256)
+        eng = live.LiveStreamEngine(RFDataset({str(tmp_path)!r}),
+                                    cfg.replace(stream_seconds=0.002,
+                                                hop=128), "cpu")
+        assert eng.tick(cfg).tile.shape[1] == 2
         assert "jax" not in sys.modules, "a request loaded jax"
         print("ok")
     """)
