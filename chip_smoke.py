@@ -17,6 +17,14 @@ drives the port's paths on the card, checking what comes out:
 - LiveStreamEngine at full width (a 30 s window of a 1 MS/s two-channel
   capture that grows between ticks: a 480 MB ring on the card), its
   checkpoint and resume, and at nfft 2^20;
+- the multi-tab runtime: B2 over a batch of requests against its plain
+  version and against solo launches; the JAX bench's mtab/7/display
+  (seven display-tile tabs merged by SharedRefreshScheduler into one
+  BatchedStiPipeline launch, each tab bit-equal to its solo request, with
+  a torch.profiler trace of one cycle); three merged headline tabs (mixed
+  dtypes and dBFS references) and the head-of-line wait behind them; a
+  threaded written SpectrogramProcessor; and N = 1, 3, 7 streaming
+  processors on their own threads over one capture a writer thread grows;
 
 then times kernels, pushes, ticks and requests with CUDA events and the
 wall clock. Every phase prints one JSON line; the last line is
@@ -156,10 +164,15 @@ def reset_counts() -> None:
     """Set every kernel's launch count to 0 (just before a path runs)."""
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["median"].batched_launches = 0
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    """Launches per kernel, plus B2's launches over a batch of requests
+    (``median_batched``, also counted in ``median``)."""
+    counts = {k: fn.launches for k, fn in _wrappers().items()}
+    counts["median_batched"] = _wrappers()["median"].batched_launches
+    return counts
 
 
 def add_counts(total: dict, run: dict) -> None:
@@ -639,6 +652,438 @@ def phase_live(dev, card, x, sr):
     return total
 
 
+def phase_b2_batched(dev, card, rng):
+    """B2 over a batch of requests against its plain version
+    (median_bisect per request) and np.median, bit for bit, at the merged
+    launches' shapes and an odd n; then timed in turns against the plain
+    version and against B solo launches. Returns {shape: (kernel ms,
+    plain ms, solo ms)}."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch.kernels import median_cuda
+    from pyspectrogram_tpu_torch.ops import plain
+
+    out = {}
+    for shape in ((7, 100, 1, 1024), (3, 128, 2, 4096), (5, 129, 2, 1024)):
+        B, n = shape[:2]
+        p = rng.exponential(size=shape).astype(np.float32)
+        p[:, : n // 3, :, : shape[-1] // 4] = p[:, n // 3 : n // 3 + 1, :,
+                                                : shape[-1] // 4]
+        pd = torch.from_numpy(p).to(dev)
+        got = median_cuda.median_over_time_cuda(pd, batched=True)
+        want = np.median(p, axis=1).astype(np.float32)
+        plain_b = torch.stack([plain.median_bisect(pd[b]) for b in range(B)])
+        check(np.array_equal(got.cpu().numpy(), want)
+              and torch.equal(got, plain_b),
+              f"batched B2 is not bit-exact at {shape}")
+
+        def solo():
+            for b in range(B):
+                median_cuda.median_over_time_cuda(pd[b])
+
+        def plain_fn():
+            for b in range(B):
+                plain.median_bisect(pd[b])
+
+        k_ms, plain_ms = in_turns(
+            plain_fn, lambda: median_cuda.median_over_time_cuda(
+                pd, batched=True), iters=20)
+        k2_ms, solo_ms = in_turns(solo, lambda: median_cuda
+                                  .median_over_time_cuda(pd, batched=True),
+                                  iters=50)
+        out[shape] = ((k_ms + k2_ms) / 2, plain_ms, solo_ms)
+        emit({"phase": "b2_batched_vs_plain", "card": card,
+              "shape": list(shape), "max_abs_err": 0.0,
+              "batched_ms": out[shape][0], "plain_ms": plain_ms,
+              "solo_launches_ms": solo_ms})
+    return out
+
+
+def _tab_callbacks(events: list, terms: list):
+    from pyspectrogram_tpu_torch.runtime import ProcessorCallbacks
+
+    return ProcessorCallbacks(on_iterated=events.append,
+                              on_terminated=terms.append)
+
+
+def phase_mtab_display(dev, card, sr):
+    """The JAX bench's mtab/7/display (bench.py:188-261) at full width:
+    seven written display-tile tabs (nfft 1024, ntime 100, colour ranges
+    (-110 - i, -40)) over one 2^20-sample 1 MS/s capture, merged by the
+    shared scheduler: one merged launch of 7, a static second cycle with
+    no launch, each tab equal to its solo request bit for bit, merged vs
+    solo cycle times, and a traced merged cycle's device busy share.
+    Returns the first cycle's launch counts."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch import SpectrogramConfig
+    from pyspectrogram_tpu_torch.io.memory import MemoryDataset
+    from pyspectrogram_tpu_torch.models import batch, sti
+    from pyspectrogram_tpu_torch.runtime import (
+        SharedRefreshScheduler,
+        SpectrogramProcessor,
+    )
+    from pyspectrogram_tpu_torch.utils.profiling import (
+        StageTimer,
+        device_busy_share,
+        device_trace,
+    )
+
+    B, f0 = 7, 125_000.0
+    ds = MemoryDataset(two_tone(1 << 20, sr, [f0], noise_rms=1e-3, seed=3),
+                       sr)
+    cfg = SpectrogramConfig(nfft=1024, nint=1, ntime=100, display_tile=True)
+    sched = SharedRefreshScheduler(autostart=False)
+    events = [[] for _ in range(B)]
+    tabs = [SpectrogramProcessor(
+        "written", ds, i, cfg.replace(color_range_db=(-110.0 - i, -40.0)),
+        callbacks=_tab_callbacks(events[i], []), scheduler=sched,
+        device=dev).start() for i in range(B)]
+    merge_bytes = 2 * 1 * B * cfg.ntime * cfg.nfft * 4
+    check(merge_bytes >= batch.BATCH_PREFETCH_MIN_BYTES,
+          "mtab_7_display: expected the batched prefetch branch")
+    reset_counts()
+    sched.tick_once()
+    torch.cuda.synchronize()
+    run = read_counts()
+    check((sched.merged_launches, sched.merged_requests) == (1, B)
+          and sched.solo_launches == 0,
+          f"mtab_7_display: merged {sched.merged_launches} launches of "
+          f"{sched.merged_requests}, {sched.solo_launches} solo")
+    check(run["sti_psd"] > 0 and run["median_batched"] > 0,
+          f"mtab_7_display: launches {run}")
+    reset_counts()
+    sched.tick_once()
+    torch.cuda.synchronize()
+    second = read_counts()
+    check(not any(second.values())
+          and all(p.skipped_recomputes == 1 for p in tabs)
+          and all(len(e) == 2 for e in events),
+          f"mtab_7_display: static cycle launched {second}")
+    solos = [sti.StiPipeline(ds, p.config, device=dev) for p in tabs]
+    for i, (e, s) in enumerate(zip(events, solos)):
+        got, want = e[0], s.compute()
+        for f in ("tile", "sxx_med_dbfs", "times", "mask", "plot_freqs"):
+            check(np.array_equal(getattr(got, f), getattr(want, f)),
+                  f"mtab_7_display: tab {i} differs from its solo request "
+                  f"in {f}")
+        med = got.sxx_med_dbfs[:, 0]
+        k = int(med.argmax())
+        check(got.tile.shape[:2] == (cfg.ntime, 1)
+              and abs(got.freqs[k] - f0) <= sr / cfg.nfft
+              and abs(med[k]) <= 0.1,
+              f"mtab_7_display: tab {i} peak {med[k]} dBFS at "
+              f"{got.freqs[k]} Hz")
+
+    def merged_cycle():
+        for p in tabs:
+            p._last_key = None                  # dirty every cycle
+        sched.tick_once()
+
+    def solo_cycle():
+        for s in solos:
+            s.compute()                         # with its bounds refresh
+
+    turns = [wall_ms(fn, n=15, warm=2) for fn in
+             (merged_cycle, solo_cycle, solo_cycle, merged_cycle)]
+    merged_ms = (turns[0][0] + turns[3][0]) / 2
+    solo_ms = (turns[1][0] + turns[2][0]) / 2
+    timer = StageTimer()
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp) as prof:
+            with timer.stage("merged_cycle"):
+                merged_cycle()
+                torch.cuda.synchronize()
+        busy = device_busy_share(prof.trace_path, "merged_cycle")
+        kernels = sorted(
+            ((e.key, e.device_time_total / 1e3) for e in prof.key_averages()
+             if getattr(e, "device_time_total", 0) > 0),
+            key=lambda kv: -kv[1])[:6]
+    for p in tabs:
+        p.abort()
+    emit({"phase": "mtab_7_display", "card": card, "tabs": B,
+          "nfft": cfg.nfft, "ntime": cfg.ntime, "capture_samples": 1 << 20,
+          "merge_bytes": merge_bytes, "prefetch": True, "launches": run,
+          "merged_launches": 1, "merged_requests": B,
+          "static_cycle_skips": B, "merged_equals_solo": True,
+          "cycles": 15, "merged_cycle_p50_ms": merged_ms,
+          "solo_cycle_p50_ms": solo_ms, "speedup": solo_ms / merged_ms,
+          "traced_cycle_ms": busy["span_ms"],
+          "device_busy_ms": busy["device_busy_ms"],
+          "device_busy_share": busy["busy_share"],
+          "device_events": busy["device_events"],
+          "top_device_ms": [[k, v] for k, v in kernels]})
+    return run
+
+
+def phase_mtab_headline(dev, card, ds, sr, tones):
+    """Three float-output tabs at the headline shape (nfft 4096, nint 4,
+    ntime 128, nsub 2, welch, exact) merged into one launch over the
+    prefetch branch: two read ``ds`` (complex64, ref 1), one an int16
+    copy of it at ref 2^15.5 (the mixed-dtype merge, the inv_ref_sq
+    scale). Each tab against its solo request within 1e-3 dB within 60 dB
+    of each column's peak; then the head-of-line wait of a
+    reference-default tab registered behind them, against its wait alone.
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch import SpectrogramConfig
+    from pyspectrogram_tpu_torch.io.memory import MemoryDataset
+    from pyspectrogram_tpu_torch.models import batch, sti
+    from pyspectrogram_tpu_torch.runtime import (
+        SharedRefreshScheduler,
+        SpectrogramProcessor,
+    )
+
+    chan = ds.channels[0]
+    x = ds.reader.samples * np.float32(2 ** 14)
+    x16 = np.empty(x.shape, np.dtype([("r", np.int16), ("i", np.int16)]))
+    x16["r"], x16["i"] = np.rint(x.real), np.rint(x.imag)
+    ref16 = 2.0 ** 15.5
+    ds16 = MemoryDataset(x16, sr, channel=chan, ref=ref16)
+    cfg = SpectrogramConfig(nfft=4096, nint=4, ntime=128, mode="welch",
+                            precision="exact")
+    sched = SharedRefreshScheduler(autostart=False)
+    events = [[], [], []]
+    tabs = [SpectrogramProcessor("written", d, i, cfg,
+                                 callbacks=_tab_callbacks(events[i], []),
+                                 scheduler=sched, device=dev).start()
+            for i, d in enumerate((ds, ds, ds16))]
+    merge_bytes = 2 * 2 * 3 * cfg.ntime * cfg.nfft * cfg.nint * 4
+    check(merge_bytes >= batch.BATCH_PREFETCH_MIN_BYTES,
+          "mtab_3_headline: expected the batched prefetch branch")
+    reset_counts()
+    t0 = time.perf_counter()
+    sched.tick_once()
+    torch.cuda.synchronize()
+    cycle_ms = (time.perf_counter() - t0) * 1e3
+    run = read_counts()
+    check((sched.merged_launches, sched.merged_requests) == (1, 3)
+          and run["sti_psd"] > 0 and run["median_batched"] > 0,
+          f"mtab_3_headline: merged {sched.merged_launches} of "
+          f"{sched.merged_requests}, launches {run}")
+    d = 0.0
+    peaks = []
+    for i, (p, e) in enumerate(zip(tabs, events)):
+        got, want = e[0], sti.StiPipeline(p.ds, cfg, device=dev).compute()
+        check(np.array_equal(got.times, want.times)
+              and np.array_equal(got.mask, want.mask),
+              f"mtab_3_headline: tab {i} frame axes differ from solo")
+        d = max(d, db_diff(got.sxx_dbfs, want.sxx_dbfs, axis=0),
+                db_diff(got.sxx_med_dbfs, want.sxx_med_dbfs, axis=0))
+        want_peak = 0.0 if i < 2 else 20 * np.log10(2 ** 14 / ref16)
+        for s_, f in enumerate(tones):
+            med = got.sxx_med_dbfs[:, s_]
+            k = int(med.argmax())
+            peaks.append(float(med[k]))
+            check(abs(got.freqs[k] - f) <= sr / cfg.nfft
+                  and abs(med[k] - want_peak) <= 0.1,
+                  f"mtab_3_headline: tab {i} sub {s_} peak {med[k]} dBFS "
+                  f"at {got.freqs[k]} Hz")
+    check(d <= 1e-3, f"mtab_3_headline: merged differs from solo by {d} dB")
+
+    # head of line: a reference-default tab registered after the three
+    # headline tabs gets its frame only when their merged launch is done;
+    # alone on its own scheduler, after its own request
+    from pyspectrogram_tpu_torch.runtime import ProcessorCallbacks
+
+    def hol_ms(sched_, others) -> float:
+        arrived = []
+        small = SpectrogramProcessor(
+            "written", ds, 9, SpectrogramConfig(),
+            callbacks=ProcessorCallbacks(
+                on_iterated=lambda e: arrived.append(time.perf_counter())),
+            scheduler=sched_, device=dev).start()
+        waits = []
+        for _ in range(4):
+            for t in others + [small]:
+                t._last_key = None              # dirty every cycle
+            t0 = time.perf_counter()
+            sched_.tick_once()
+            waits.append((arrived[-1] - t0) * 1e3)
+        small.abort()
+        return float(np.median(waits[1:]))
+
+    hol = {"behind_headline_ms": hol_ms(sched, tabs),
+           "alone_ms": hol_ms(SharedRefreshScheduler(autostart=False), [])}
+    for p in tabs:
+        p.abort()
+    emit({"phase": "mtab_3_headline", "card": card, "tabs": 3,
+          "nfft": cfg.nfft, "nint": cfg.nint, "ntime": cfg.ntime, "nsub": 2,
+          "merge_bytes": merge_bytes, "prefetch": True,
+          "dtypes": ["complex64", "complex64", "int16"],
+          "refs": [1.0, 1.0, ref16], "launches": run,
+          "merged_cycle_ms": cycle_ms, "peaks_dbfs": peaks,
+          "max_db_diff_vs_solo": d,
+          "head_of_line_reference_default_tab": hol})
+    return run
+
+
+def phase_processor_written(dev, card, sr):
+    """One threaded written processor without a scheduler: on a static
+    capture 5 iterations are one compute and 4 delta skips, then
+    Terminated OK; on a capture grown after every iteration, every
+    iteration recomputes and chases the new end. Returns the launch
+    counts of the static run."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch import SpectrogramConfig
+    from pyspectrogram_tpu_torch.io.memory import MemoryDataset
+    from pyspectrogram_tpu_torch.runtime import SpectrogramProcessor
+
+    x = two_tone(1 << 20, sr, [125_000.0], noise_rms=1e-3, seed=5)
+    cfg = SpectrogramConfig(nfft=1024, nint=1, ntime=100)
+    events, terms = [], []
+    p = SpectrogramProcessor("written", MemoryDataset(x, sr), 0, cfg,
+                             callbacks=_tab_callbacks(events, terms),
+                             written_sleep=0.0, max_iterations=5, device=dev)
+    reset_counts()
+    p.start()
+    p.join(120)
+    torch.cuda.synchronize()
+    run = read_counts()
+    check(not p._thread.is_alive() and len(events) == 5
+          and p.skipped_recomputes == 4
+          and [int(t.reason) for t in terms] == [0],
+          f"processor_written: {len(events)} iterations, "
+          f"{p.skipped_recomputes} skips, terminated {terms}")
+    check(run["sti_psd"] > 0 and run["median"] > 0,
+          f"processor_written: launches {run}")
+    static = p.latency_stats()
+
+    n0, grow = 1 << 19, sr // 10
+    ds = MemoryDataset(x[:n0], sr)
+    grown, ends, terms2 = [n0], [], []
+
+    def on_iterated(e):
+        ends.append(e.times[-1])
+        ds.append(x[grown[0]:grown[0] + grow])
+        grown[0] += grow
+
+    from pyspectrogram_tpu_torch.runtime import ProcessorCallbacks
+
+    p2 = SpectrogramProcessor(
+        "written", ds, 1, cfg,
+        callbacks=ProcessorCallbacks(on_iterated=on_iterated,
+                                     on_terminated=terms2.append),
+        written_sleep=0.0, max_iterations=4, device=dev)
+    p2.start()
+    p2.join(120)
+    check(not p2._thread.is_alive() and len(ends) == 4
+          and p2.skipped_recomputes == 0
+          and all(b > a for a, b in zip(ends, ends[1:]))
+          and [int(t.reason) for t in terms2] == [0],
+          f"processor_written: grown capture gave {len(ends)} iterations, "
+          f"{p2.skipped_recomputes} skips")
+    emit({"phase": "processor_written", "card": card, "nfft": cfg.nfft,
+          "ntime": cfg.ntime, "static_iterations": 5, "static_skips": 4,
+          "launches": run, "static_latency": static,
+          "grown_iterations": 4, "grown_recomputes": 4,
+          "grown_latency": p2.latency_stats()})
+    return run
+
+
+def phase_live_tabs(dev, card, x, sr):
+    """N streaming processors (N = 1, 3, 7), one thread each, over one
+    capture that a writer thread grows by 0.1 s every 0.1 s, at
+    live_full_width's shape (30 s window, nfft 4096, hop 2048, display
+    tile, ntime 100; a 480 MB ring per tab). Each tab runs 21 iterations
+    (a cold start and 20 ticks); the tones' peaks are checked on every
+    iteration; per-tab tick p50/p90 over the 20 ticks. ``x`` repeats
+    (its length is a multiple of the tones' 16-sample period). Returns
+    the launch counts."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch import SpectrogramConfig
+    from pyspectrogram_tpu_torch.io.memory import MemoryDataset
+    from pyspectrogram_tpu_torch.runtime import SpectrogramProcessor
+
+    tones = [sr / 16.0, sr / 8.0]
+    cfg = SpectrogramConfig(nfft=4096, hop=2048, ntime=100,
+                            stream_seconds=30.0, display_tile=True,
+                            color_range_db=COLOR_RANGE_DB)
+    total = {k: 0 for k in read_counts()}
+    n0, step = 31 * sr, sr // 10
+    iters = 21
+    for n_tabs in (1, 3, 7):
+        ds = MemoryDataset(x[:n0], sr)
+        stop = threading.Event()
+        written = [n0]
+
+        def write():
+            while not stop.wait(0.1):
+                idx = np.arange(written[0], written[0] + step) % len(x)
+                ds.append(x[idx])
+                written[0] += step
+
+        events = [[] for _ in range(n_tabs)]
+        terms = [[] for _ in range(n_tabs)]
+        tabs = [SpectrogramProcessor(
+            "streaming", ds, i, cfg,
+            callbacks=_tab_callbacks(events[i], terms[i]),
+            max_iterations=iters, device=dev) for i in range(n_tabs)]
+        reset_counts()
+        writer = threading.Thread(target=write, daemon=True)
+        t0 = time.perf_counter()
+        writer.start()
+        for p in tabs:
+            p.start()
+        for p in tabs:
+            p.join(300)
+        wall_s = time.perf_counter() - t0
+        stop.set()
+        writer.join(10)
+        torch.cuda.synchronize()
+        run = read_counts()
+        check(not writer.is_alive()
+              and not any(p._thread.is_alive() for p in tabs),
+              f"live_tabs_{n_tabs}: threads still running")
+        check(run["stream_psd"] > 0 and run["median"] > 0,
+              f"live_tabs_{n_tabs}: launches {run}")
+        add_counts(total, run)
+        p50s, p90s, peaks = [], [], []
+        for i, (p, ev, tm) in enumerate(zip(tabs, events, terms)):
+            check(len(ev) == iters and [int(t.reason) for t in tm] == [0],
+                  f"live_tabs_{n_tabs}: tab {i} gave {len(ev)} iterations, "
+                  f"terminated {tm}")
+            for j, e in enumerate(ev):
+                for s_, f in enumerate(tones):
+                    med = e.sxx_med_dbfs[:, s_]
+                    k = int(med.argmax())
+                    check(abs(e.freqs[k] - f) <= sr / cfg.nfft
+                          and abs(med[k]) <= 0.1,
+                          f"live_tabs_{n_tabs}: tab {i} iteration {j} sub "
+                          f"{s_} peak {med[k]} dBFS at {e.freqs[k]} Hz")
+                    peaks.append(float(med[k]))
+            ticks = np.asarray(list(p.latencies_s)[1:]) * 1e3
+            p50s.append(float(np.percentile(ticks, 50)))
+            p90s.append(float(np.percentile(ticks, 90)))
+        cold = [float(p.latencies_s[0]) for p in tabs]
+        emit({"phase": f"live_tabs_{n_tabs}", "card": card, "tabs": n_tabs,
+              "nfft": cfg.nfft, "hop": cfg.hop, "stream_seconds": 30.0,
+              "ring_bytes_per_tab": tabs[0]._live.engine.state.ring.numel()
+              * 4, "iterations_per_tab": iters, "launches": run,
+              "tick_p50_ms": p50s, "tick_p90_ms": p90s,
+              "tick_p50_ms_median": float(np.median(p50s)),
+              "cold_start_s": cold, "wall_s": wall_s,
+              "samples_written": written[0] - n0,
+              "peak_dbfs_min": min(peaks), "peak_dbfs_max": max(peaks),
+              "latency_stats_tab0": tabs[0].latency_stats(),
+              "capture_end_s": written[0] / sr,
+              "newest_column_s": [float((e[-1].times[-1] - np.datetime64(
+                  0, "us")) / np.timedelta64(1, "s")) for e in events]})
+        del tabs, events, ds
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -893,6 +1338,13 @@ def main() -> int:
               "request_p90_ms": req_ms[1],
               "request_samples_per_s": n_proc / (req_ms[0] * 1e-3)})
 
+    # the multi-tab runtime: B2 over a batch of requests, merged launches
+    # through the shared scheduler, one threaded written processor
+    b2_batched = phase_b2_batched(dev, card, rng)
+    add_counts(launches, phase_mtab_display(dev, card, sr))
+    add_counts(launches, phase_mtab_headline(dev, card, ds, sr, tones))
+    add_counts(launches, phase_processor_written(dev, card, sr))
+
     # B1's four-step split at nfft 32768, on a block of the headline's size
     nfft, nint, ntime = 32768, 4, 16
     x = rng.standard_normal((4, nfft * nint * ntime)).astype(np.float32)
@@ -918,6 +1370,7 @@ def main() -> int:
         dev, card, x_long[:2 * sr], sr)
     add_counts(launches, stream_counts)
     add_counts(launches, phase_live(dev, card, x_long, sr))
+    add_counts(launches, phase_live_tabs(dev, card, x_long, sr))
     del x_long
 
     # B4 at the written request's shapes: 65536 x 4 x 32 and 2^20 x 1 x 16
@@ -951,7 +1404,12 @@ def main() -> int:
          "source": "pyspectrogram_tpu_torch/csrc/median.cu",
          "replaces": "pyspectrogram_tpu/kernels/median_pallas.py:77",
          "launches": launches["median"], "max_abs_err": 0.0,
-         "ms": head["b2_ms"], "plain_ms": head["b2_plain_ms"]},
+         "ms": head["b2_ms"], "plain_ms": head["b2_plain_ms"],
+         "batched_launches": launches["median_batched"],
+         "batched_shape": [7, 100, 1, 1024],
+         "batched_ms": b2_batched[(7, 100, 1, 1024)][0],
+         "batched_plain_ms": b2_batched[(7, 100, 1, 1024)][1],
+         "batched_solo_launches_ms": b2_batched[(7, 100, 1, 1024)][2]},
         {"name": "stream_psd", "route": "cuda",
          "source": "pyspectrogram_tpu_torch/csrc/stream_psd.cu",
          "replaces": "pyspectrogram_tpu/kernels/sti_pallas.py:767",

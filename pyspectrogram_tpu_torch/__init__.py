@@ -1,18 +1,23 @@
 """pyspectrogram_tpu_torch — the PyTorch + CUDA port of pyspectrogram_tpu.
 
-Two paths run here on one torch device. The written-mode STI request: the
+Three paths run here on one torch device. The written-mode STI request: the
 host read and plane-major assembly, the PSD in kernel B1 (B4 at nfft >=
 65536) and the time-median in kernel B2 on an NVIDIA Hopper card (plain
 torch versions on the CPU), and the dB or uint8 display epilogue. The
 streaming path: :class:`StreamingSti` pushes blocks into a rotating ring
 (kernel B3 for overlapping hops) and runtime.LiveStreamEngine serves a
 growing capture's trailing window from it, with checkpoints that
-cross-load with the JAX package's. The JAX package beside it is the
-reference the tests hold this one against; this package never imports
-jax. The request state, :class:`SpectrogramConfig`, is the JAX package's
-own (its utils.config is jax-free).
+cross-load with the JAX package's. The multi-tab runtime:
+:class:`BatchedStiPipeline` runs several same-shape requests in one launch
+(kernel B2 takes the batch of medians), and runtime.SpectrogramProcessor
+and runtime.SharedRefreshScheduler drive written and streaming tabs. The
+JAX package beside it is the reference the tests hold this one against;
+this package never imports jax. The request state,
+:class:`SpectrogramConfig`, is the JAX package's own (its utils.config is
+jax-free).
 """
 
 from pyspectrogram_tpu.utils.config import SpectrogramConfig  # noqa: F401
+from pyspectrogram_tpu_torch.models.batch import BatchedStiPipeline  # noqa: F401
 from pyspectrogram_tpu_torch.models.sti import StiPipeline, StiResult  # noqa: F401
 from pyspectrogram_tpu_torch.models.streaming import StreamingSti  # noqa: F401

@@ -1,5 +1,8 @@
-// Kernel B2 on Hopper: exact median over the leading (time) axis of an
-// (n, cols) float32 array, one thread per output column.
+// Kernel B2 on Hopper: exact median over the time axis of a (batch, n,
+// cols) float32 array, one thread per (request, output column). A batch of
+// 1 is one request's (n, cols) median; a merged multi-request launch
+// (models/batch.py) passes its requests' cubes side by side, request b's
+// rows starting at b * n * cols, so no transposed copy is made.
 //
 // Replaces pyspectrogram_tpu/kernels/median_pallas.py::_make_median_kernel
 // (the pallas_call at median_pallas.py:130, reached through
@@ -29,11 +32,14 @@ __device__ __forceinline__ int order_key(float v) {
 }
 
 __global__ void median_kernel(const float* __restrict__ x, int n,
-                              long long cols, float* __restrict__ out) {
-  const long long c = static_cast<long long>(blockIdx.x) * blockDim.x +
+                              long long cols, long long total,
+                              float* __restrict__ out) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
-  if (c >= cols) return;
-  const float* col = x + c;
+  if (i >= total) return;
+  const long long b = i / cols;
+  const long long c = i - b * cols;
+  const float* col = x + b * n * cols + c;
   const int k = (n + 1) / 2;
   int lo = -0x7F800001;
   int hi = 0x7F800000;
@@ -64,19 +70,23 @@ __global__ void median_kernel(const float* __restrict__ x, int n,
     const float v2 = cnt_le > k ? v1 : bigger;
     med = 0.5f * (v1 + v2);
   }
-  out[c] = med;
+  out[i] = med;
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int pst_median(const void* x, int n, long long cols, void* out,
-                          void* stream) {
-  if (n <= 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// x: (batch, n, cols) contiguous; out: (batch, cols). Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int pst_median(const void* x, int batch, int n, long long cols,
+                          void* out, void* stream) {
+  if (batch <= 0 || n <= 0 || cols <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   constexpr int THREADS = 64;
-  const long long blocks = (cols + THREADS - 1) / THREADS;
+  const long long total = static_cast<long long>(batch) * cols;
+  const long long blocks = (total + THREADS - 1) / THREADS;
   median_kernel<<<static_cast<unsigned int>(blocks), THREADS, 0,
                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), n, cols, static_cast<float*>(out));
+      static_cast<const float*>(x), n, cols, total,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,11 +26,22 @@ from pyspectrogram_tpu_torch.ops.plain import to_dbfs
 
 def quantize_db_levels(db: torch.Tensor, qparams, npoints: int):
     """dB values -> uint8 levels with the colour range as a (2,)
-    [cmin, scale] float32 operand. The two values enter the arithmetic as
-    float32 scalars, so no host-to-device copy waits on the stream."""
+    [cmin, scale] float32 operand, or (B, 2) for a batch of requests
+    along ``db``'s leading axis (what ``jax.vmap`` over qparams gives the
+    JAX package's merged launch, models/batch.py:132-134). One pair enters
+    the arithmetic as float32 scalars, so no host-to-device copy waits on
+    the stream; B pairs as float32 (B, 1, ...) tensors. Either way the
+    arithmetic is float32 ``(db - cmin) * scale``, round half to even,
+    clamp."""
     if isinstance(qparams, torch.Tensor):
         qparams = qparams.detach().cpu().numpy()
-    cmin, scale = (float(v) for v in np.asarray(qparams, np.float32))
+    qp = np.asarray(qparams, np.float32)
+    if qp.ndim == 2:
+        col = torch.from_numpy(np.ascontiguousarray(qp.T)).to(db.device)
+        shape = (qp.shape[0],) + (1,) * (db.dim() - 1)
+        cmin, scale = col[0].reshape(shape), col[1].reshape(shape)
+    else:
+        cmin, scale = (float(v) for v in qp)
     q = (db - cmin) * scale
     return torch.clamp(torch.round(q), 0, npoints - 1).to(torch.uint8)
 

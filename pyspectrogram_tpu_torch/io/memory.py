@@ -6,11 +6,12 @@ its bounds, rate, full-scale reference and channel maps, and
 dtype, zero fill and a False mask outside the written span). A request then
 runs end to end, host assembly and prefetch branch included, without
 Digital RF files or h5py; ``append`` grows the capture for the live
-engine.
+engine, from a writer thread while processors read it from theirs.
 """
 
 from __future__ import annotations
 
+import threading
 from fractions import Fraction
 
 import numpy as np
@@ -22,10 +23,12 @@ class MemoryReader:
     """The part of io.reader.DigitalRFReader that StiPipeline and the live
     engine call, over one (n, nsub) array whose first row is absolute
     sample ``start``. :meth:`append` grows it, as a writer grows a
-    capture."""
+    capture; a lock makes an append and the reads of other threads see
+    the store whole."""
 
     def __init__(self, channel: str, samples: np.ndarray, start: int):
         self.channel = channel
+        self._lock = threading.Lock()
         self._buf = samples
         self._n = len(samples)
         self.start = int(start)
@@ -33,26 +36,29 @@ class MemoryReader:
     @property
     def samples(self) -> np.ndarray:
         """The held samples, (n, nsub)."""
-        return self._buf[:self._n]
+        with self._lock:
+            return self._buf[:self._n]
 
     def append(self, samples: np.ndarray) -> None:
         """Extend the capture by ``samples`` ((m, nsub), or (m,) for one
         subchannel, in the held dtype). The store grows geometrically, so
         an append copies O(m) samples amortized."""
-        samples = np.asarray(samples, self._buf.dtype).reshape(
-            -1, self._buf.shape[1])
-        n = self._n + len(samples)
-        if n > len(self._buf):
-            buf = np.empty((max(n, 2 * len(self._buf)), self._buf.shape[1]),
-                           self._buf.dtype)
-            buf[:self._n] = self._buf[:self._n]
-            self._buf = buf
-        self._buf[self._n:n] = samples
-        self._n = n
+        with self._lock:
+            samples = np.asarray(samples, self._buf.dtype).reshape(
+                -1, self._buf.shape[1])
+            n = self._n + len(samples)
+            if n > len(self._buf):
+                buf = np.empty((max(n, 2 * len(self._buf)),
+                                self._buf.shape[1]), self._buf.dtype)
+                buf[:self._n] = self._buf[:self._n]
+                self._buf = buf
+            self._buf[self._n:n] = samples
+            self._n = n
 
     def get_bounds(self, channel: str):
         """(first, last) absolute sample, both inclusive."""
-        return self.start, self.start + self._n - 1
+        with self._lock:
+            return self.start, self.start + self._n - 1
 
     def data_version(self, channel: str):
         return 1, 0  # held samples never change; appends move the bounds
@@ -61,13 +67,14 @@ class MemoryReader:
                         channel: str, return_mask: bool = False):
         """Dense (n, nsub) read in the storage dtype; samples outside the
         held span are zero and masked False."""
+        held = self.samples   # appends never change the rows of this view
         st, n = int(start_sample), int(n_samples)
-        out = np.zeros((n, self.samples.shape[1]), self.samples.dtype)
+        out = np.zeros((n, held.shape[1]), held.dtype)
         mask = np.zeros(n, bool)
         lo = max(st, self.start)
-        hi = min(st + n, self.start + len(self.samples))
+        hi = min(st + n, self.start + len(held))
         if lo < hi:
-            out[lo - st:hi - st] = self.samples[lo - self.start:hi - self.start]
+            out[lo - st:hi - st] = held[lo - self.start:hi - self.start]
             mask[lo - st:hi - st] = True
         return (out, mask) if return_mask else out
 

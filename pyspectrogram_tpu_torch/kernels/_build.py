@@ -36,6 +36,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 #: wall seconds the last build took in this process (0.0 when the library
 #: came from the build directory) and the compiler's output (ptxas
@@ -115,7 +116,7 @@ def library() -> ctypes.CDLL:
         lib.pst_big_psd.argtypes = psd_args
         lib.pst_stream_psd.argtypes = [vp, i64, i32, i32, i32, i32, i32, vp,
                                        vp, ctypes.c_float, vp, vp, vp]
-        lib.pst_median.argtypes = [vp, i32, i64, vp, vp]
+        lib.pst_median.argtypes = [vp, i32, i32, i64, vp, vp]
         for fn in (lib.pst_sti_psd, lib.pst_big_psd, lib.pst_stream_psd,
                    lib.pst_median):
             fn.restype = i32
@@ -127,6 +128,13 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` code from a launch."""
     if rc:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+
+
+def count(fn, attr: str = "launches") -> None:
+    """Add one to a wrapper's launch counter ``fn.<attr>``, under a lock:
+    processors on several threads launch the same kernels."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -72,7 +72,7 @@ def big_psd_cuda(samples_pm: torch.Tensor, starts: torch.Tensor, *,
             tw.data_ptr(), inv_scale, work.data_ptr(),
             out[c0:].data_ptr(), _build.stream_of(samples_pm))
         _build.check(rc, "big_psd")
-        big_psd_cuda.launches += 1
+        _build.count(big_psd_cuda)
     return out
 
 

@@ -89,7 +89,7 @@ def sti_psd_cuda(samples_pm: torch.Tensor, starts: torch.Tensor, *,
         tw.data_ptr(), inv_scale, None if work is None else work.data_ptr(),
         out.data_ptr(), _build.stream_of(samples_pm))
     _build.check(rc, "sti_psd")
-    sti_psd_cuda.launches += 1
+    _build.count(sti_psd_cuda)
     return out
 
 

@@ -69,7 +69,7 @@ def stream_psd_cuda(buf_pm: torch.Tensor, *, nfft: int, nint: int = 1,
         None if work is None else work.data_ptr(), out.data_ptr(),
         _build.stream_of(buf_pm))
     _build.check(rc, "stream_psd")
-    stream_psd_cuda.launches += 1
+    _build.count(stream_psd_cuda)
     return out
 
 

@@ -171,6 +171,16 @@ def assemble_device_block_prefetch(
     return dev, starts_rel, np.concatenate(masks)
 
 
+def check_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a torch.device; a CUDA device on a machine without
+    one raises (there is no silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but torch sees no CUDA "
+                           "device")
+    return dev
+
+
 class StiPipeline:
     """Reusable request executor over one dataset, on one torch device.
 
@@ -181,10 +191,7 @@ class StiPipeline:
     def __init__(self, dataset: Optional[RFDataset],
                  config: SpectrogramConfig,
                  device: Union[str, torch.device]):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but torch "
-                               "sees no CUDA device")
+        self.device = check_device(device)
         self.ds = dataset
         self.config = config
         self._iteration = -1

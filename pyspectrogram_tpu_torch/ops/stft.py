@@ -12,7 +12,8 @@ ops.plain.psd_torch (torch.fft) everywhere else; a streaming push's
 columns follow :func:`stream_impl`, which adds kernel B3
 (kernels.stream_cuda) for overlapping hops. The median runs a Batcher
 network for n <= 32 and kernel B2
-(kernels.median_cuda) or its plain bisection above. Host constants — the
+(kernels.median_cuda) or its plain bisection above, for one request or,
+in :func:`median_over_time_batched`, a batch of them. Host constants — the
 window and the power scale — are built once in numpy float64, as the JAX
 package builds them, and cast to float32 on the device. No step uses a
 matrix product, so the TF32 switches of torch.backends do not apply.
@@ -54,8 +55,11 @@ def _batcher_pairs(n: int):
     return tuple(pairs)
 
 
-def _median_network(p: torch.Tensor, n: int) -> torch.Tensor:
-    rows = [p[i] for i in range(n)]
+def _median_network(rows) -> torch.Tensor:
+    """Median of the n tensors ``rows`` (the time rows) by Batcher's
+    network of elementwise min/max."""
+    rows = list(rows)
+    n = len(rows)
     for a, b in _batcher_pairs(n):
         rows[a], rows[b] = (torch.minimum(rows[a], rows[b]),
                             torch.maximum(rows[a], rows[b]))
@@ -73,13 +77,28 @@ def median_over_time(p: torch.Tensor,
     n = p.shape[0] if ntime_valid is None else int(ntime_valid)
     p = p[:n]
     if n <= MEDIAN_NETWORK_MAX_N:
-        return _median_network(p, n)
+        return _median_network(p[i] for i in range(n))
     if p.dtype == torch.float32:
         return median_cuda.median_over_time_cuda(p)
     s = torch.sort(p, dim=0).values
     if n % 2:
         return s[n // 2]
     return 0.5 * (s[n // 2 - 1] + s[n // 2])
+
+
+def median_over_time_batched(p: torch.Tensor) -> torch.Tensor:
+    """Per-request medians of a batch: (B, ntime, ..., nfft) ->
+    (B, ..., nfft), what ``jax.vmap(median_over_time)`` gives the JAX
+    package's merged launch (models/batch.py:122). The network runs on
+    axis 1 (``p[:, i]`` is a view) for ntime <= 32; above, kernel B2 takes
+    the whole batch in one launch."""
+    n = p.shape[1]
+    if n <= MEDIAN_NETWORK_MAX_N:
+        return _median_network(p[:, i] for i in range(n))
+    if p.dtype == torch.float32:
+        return median_cuda.median_over_time_cuda(p.contiguous(),
+                                                 batched=True)
+    return torch.stack([median_over_time(pb) for pb in p])
 
 
 def pick_impl(nfft: int, device, impl: str = "auto") -> str:
@@ -125,10 +144,31 @@ def stream_impl(nfft: int, nint: int, hop: int, device) -> str:
     return "sti"
 
 
+def check_knobs(*, nfft: int, mode: str, precision: str, impl: str) -> None:
+    """Raise on a mode, precision tier or PSD impl no STI function takes
+    (an explicit impl="cuda" outside the kernels' nfft range included)."""
+    if mode not in ("parity", "welch"):
+        raise ValueError(f"mode must be 'parity' or 'welch', got {mode!r}")
+    if precision not in ("exact", "balanced", "display"):
+        raise ValueError(f"unknown precision {precision!r}")
+    pick_impl(nfft, "cpu", impl)
+
+
+def sti_psd(samples_pm: torch.Tensor, starts: torch.Tensor, *,
+            impl: str = "auto", **psd_kw) -> torch.Tensor:
+    """Fftshifted linear power (ntime, nsub, nfft) of the frames at
+    ``starts``, by :func:`pick_impl`: kernel B1 (B4 at nfft >= 65536) or
+    ops.plain.psd_torch. ``psd_kw``: nfft, nint, mode, window, ref."""
+    if pick_impl(psd_kw["nfft"], samples_pm.device, impl) == "cuda":
+        return sti_cuda.sti_psd_cuda(samples_pm, starts, **psd_kw)
+    return psd_torch(samples_pm, starts, **psd_kw)
+
+
 @functools.lru_cache(maxsize=64)
-def _hop_starts(k: int, hop: int, device: torch.device) -> torch.Tensor:
-    """(k,) int32 starts t*hop on ``device``, built once per push shape
-    (the kernels only read them)."""
+def hop_starts(k: int, hop: int, device: torch.device) -> torch.Tensor:
+    """(k,) int32 starts t*hop on ``device``, built once per shape (the
+    kernels only read them): a streaming push's columns, or a merged
+    batch's side-by-side frames (hop = frame_len)."""
     return torch.arange(k, dtype=torch.int32, device=device) * hop
 
 
@@ -143,7 +183,7 @@ def stream_columns(buf_pm: torch.Tensor, k: int, *, nfft: int, nint: int,
     impl = stream_impl(nfft, nint, hop, buf_pm.device)
     if impl == "stream":
         return stream_cuda.stream_psd_cuda(buf_pm, hop=hop, **kw)
-    starts = _hop_starts(k, hop, buf_pm.device)
+    starts = hop_starts(k, hop, buf_pm.device)
     if impl == "sti":
         return sti_cuda.sti_psd_cuda(buf_pm, starts, **kw)
     return psd_torch(buf_pm, starts, **kw)
@@ -185,11 +225,7 @@ def make_sti_fn_pm(
     float32 kernel meets all three (exact ~1e-5 dB, balanced ~7e-4 dB,
     display ~0.12 dB).
     """
-    if mode not in ("parity", "welch"):
-        raise ValueError(f"mode must be 'parity' or 'welch', got {mode!r}")
-    if precision not in ("exact", "balanced", "display"):
-        raise ValueError(f"unknown precision {precision!r}")
-    pick_impl(nfft, "cpu", impl)  # validates impl and an explicit ask
+    check_knobs(nfft=nfft, mode=mode, precision=precision, impl=impl)
     default_qp = None if tile is None else tile.qparams
     psd_kw = dict(nfft=nfft, nint=nint, mode=mode, window=window, ref=ref)
 
@@ -197,10 +233,7 @@ def make_sti_fn_pm(
                qparams=None) -> dict:
         if contiguous and samples_pm.shape[1] < starts.shape[0] * nfft * nint:
             raise ValueError("buffer shorter than ntime contiguous frames")
-        if pick_impl(nfft, samples_pm.device, impl) == "cuda":
-            p = sti_cuda.sti_psd_cuda(samples_pm, starts, **psd_kw)
-        else:
-            p = psd_torch(samples_pm, starts, **psd_kw)
+        p = sti_psd(samples_pm, starts, impl=impl, **psd_kw)
         p_med = median_over_time(p)
         out = {"sxx_med_dbfs": to_dbfs(p_med, eps)}
         if tile is not None:

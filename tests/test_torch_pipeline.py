@@ -168,8 +168,9 @@ def test_cuda_device_raises_without_gpu(tone_capture):
 
 def test_port_never_imports_jax(tmp_path):
     """Importing the port and running a request (prefetch branch included),
-    a streaming push and a live tick leaves jax out of the process; a
-    fresh interpreter, since this one already holds jax."""
+    a streaming push, a live tick, a merged scheduler cycle and a
+    streaming processor leaves jax out of the process; a fresh
+    interpreter, since this one already holds jax."""
     code = textwrap.dedent(f"""
         import sys
         import numpy as np
@@ -189,6 +190,10 @@ def test_port_never_imports_jax(tmp_path):
         import pyspectrogram_tpu_torch.ops.windows
         import pyspectrogram_tpu_torch.runtime.checkpoint
         import pyspectrogram_tpu_torch.runtime.live as live
+        import pyspectrogram_tpu_torch.models.batch as batch
+        import pyspectrogram_tpu_torch.runtime as runtime
+        import pyspectrogram_tpu_torch.runtime.signals
+        import pyspectrogram_tpu_torch.utils.profiling as profiling
         assert "jax" not in sys.modules, "import loaded jax"
         from pyspectrogram_tpu.io import RFDataset
         from pyspectrogram_tpu.io.synthetic import write_capture
@@ -207,6 +212,21 @@ def test_port_never_imports_jax(tmp_path):
                                     cfg.replace(stream_seconds=0.002,
                                                 hop=128), "cpu")
         assert eng.tick(cfg).tile.shape[1] == 2
+        batch.BATCH_PREFETCH_MIN_BYTES = 0
+        sched = runtime.SharedRefreshScheduler(autostart=False)
+        tabs = [runtime.SpectrogramProcessor(
+            "written", {str(tmp_path)!r}, i, cfg, scheduler=sched,
+            device="cpu").start() for i in range(2)]
+        timer = profiling.StageTimer()
+        with timer.stage("cycle"):
+            sched.tick_once()
+        assert (sched.merged_launches, sched.merged_requests) == (1, 2)
+        live_tab = runtime.SpectrogramProcessor(
+            "streaming", {str(tmp_path)!r}, 2,
+            cfg.replace(stream_seconds=0.002), max_iterations=1,
+            device="cpu")
+        live_tab.run()
+        assert live_tab.has_live_state
         assert "jax" not in sys.modules, "a request loaded jax"
         print("ok")
     """)
