@@ -25,6 +25,14 @@ drives the port's paths on the card, checking what comes out:
   dtypes and dBFS references) and the head-of-line wait behind them; a
   threaded written SpectrogramProcessor; and N = 1, 3, 7 streaming
   processors on their own threads over one capture a writer thread grows;
+- the port's entry points: the pstpu-torch commands (sti at the headline
+  shape with its .npz and session, resume, psd, sti-batch over three
+  captures, stream with and without --hop 2048, watch at the 30 s window,
+  sti at nfft 65536) through ``build_parser()``, and the viewer's
+  MainWindow on the headless widget kit (a written tab at the reference
+  default, a live tab at the 30 s window), its plots recorded;
+- filter_signal over a 30 s, 1 MS/s two-tone capture (58,592 frames of
+  nfft 1024) against the same call on the CPU, and regenerate_signal;
 
 then times kernels, pushes, ticks and requests with CUDA events and the
 wall clock. Every phase prints one JSON line; the last line is
@@ -476,14 +484,15 @@ def phase_live(dev, card, x, sr):
     from the first 31 s of ``x`` (two tones at ``sr``):
     cold start, ticks after appends, exact median, checkpoint + resume bit
     for bit, tick timing; the same at nfft 2^20 (B4); and the engine on
-    the CPU at a 1 s window as the reference. Returns the launch counts."""
+    the CPU at a 1 s window as the reference. Returns the launch counts
+    and (B2's ms, its plain version's ms, the window's shape)."""
     import numpy as np
     import torch
 
     from pyspectrogram_tpu_torch import SpectrogramConfig
     from pyspectrogram_tpu_torch.io.memory import MemoryDataset
     from pyspectrogram_tpu_torch.kernels import median_cuda
-    from pyspectrogram_tpu_torch.ops import stft
+    from pyspectrogram_tpu_torch.ops import plain, stft
     from pyspectrogram_tpu_torch.ops.plain import to_dbfs
     from pyspectrogram_tpu_torch.runtime import LiveStreamEngine
 
@@ -584,8 +593,14 @@ def phase_live(dev, card, x, sr):
         walls.append(time.perf_counter() - t0)
     tick_p50, tick_p90 = (float(v) for v in
                           np.percentile(walls, [50, 90]) * 1e3)
-    b2_ms = event_ms(lambda: median_cuda.median_over_time_cuda(window),
-                     iters=5, warm=1)
+    # B2 over the window in turns with its plain version, bit for bit
+    check(torch.equal(median_cuda.median_over_time_cuda(window),
+                      plain.median_bisect(window)),
+          "live: B2 over the window is not median_bisect's")
+    b2_ms, b2_plain_ms = in_turns(
+        lambda: plain.median_bisect(window),
+        lambda: median_cuda.median_over_time_cuda(window), iters=5)
+    b2_window = (b2_ms, b2_plain_ms, list(window.shape))
     gather_ms = event_ms(lambda: eng.state.ring.index_select(0, rows),
                          iters=5, warm=1)
     emit({"phase": "live_full_width", "card": card, "sample_rate": sr,
@@ -597,6 +612,7 @@ def phase_live(dev, card, x, sr):
           "resume_s": resume_s, "resumed_bit_equal": True,
           "tick_n": len(walls), "tick_p50_ms": tick_p50,
           "tick_p90_ms": tick_p90, "b2_window_ms": b2_ms,
+          "b2_window_plain_ms": b2_plain_ms,
           "b2_share_of_tick_p50": b2_ms / tick_p50,
           "window_gather_ms": gather_ms})
     del eng, window
@@ -649,7 +665,7 @@ def phase_live(dev, card, x, sr):
         emit({"phase": f"live_vs_cpu_nfft{c.nfft}", "stream_seconds": 1.0,
               "ticks": 3, "max_db_diff_vs_cpu": d,
               "tile_pixels_off_by_one": n_off})
-    return total
+    return total, b2_window
 
 
 def phase_b2_batched(dev, card, rng):
@@ -1084,6 +1100,360 @@ def phase_live_tabs(dev, card, x, sr):
     return total
 
 
+def periodic_two_tone(n: int, sample_rate: float, freqs_hz, period: int,
+                      noise_rms: float, seed: int):
+    """(n,) complex64: unit tones at ``freqs_hz`` with seeded phases, each
+    a whole number of cycles per ``period`` samples (so one period, tiled,
+    makes tens of seconds fast), plus float32 white noise; and the tones
+    alone, each as its own (n,) complex64 array."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    k = np.arange(period) / sample_rate
+    tones = [np.tile(np.exp(1j * (2 * np.pi * f * k + ph)).astype(
+        np.complex64), n // period)
+        for f, ph in zip(freqs_hz, rng.uniform(0, 2 * np.pi, len(freqs_hz)))]
+    noise = rng.standard_normal((n, 2), dtype=np.float32)
+    noise *= np.float32(noise_rms / np.sqrt(2.0))
+    x = noise.view(np.complex64)[:, 0]
+    for t in tones:
+        x += t
+    return x, tones
+
+
+def tone_checks(y, keep, cut, edge: int):
+    """(largest error of ``y`` against the kept tone, the cut tone's level
+    in dB under the kept one's) on the fully covered interior (``edge``
+    samples in from each end); both tones are projected out of ``y``."""
+    import numpy as np
+
+    sl = slice(edge, len(y) - edge)
+    err = float(np.abs(y[sl] - keep[:len(y)][sl]).max())
+    a_keep = abs(np.vdot(keep[:len(y)][sl], y[sl]))
+    a_cut = abs(np.vdot(cut[:len(y)][sl], y[sl]))
+    return err, float(20 * np.log10(a_cut / a_keep))
+
+
+def phase_filter(dev, card, seconds: int = 30, sr: int = 1_000_000):
+    """filter_signal over a seeded ``seconds`` s two-tone capture at
+    ``sr`` (tones at 50 and 300 kHz), low-pass at 120 kHz with nfft 1024:
+    the card against the port's CPU run, the kept tone against the ideal
+    one and the cut tone's level; the STFT, mask and ISTFT timed with CUDA
+    events; then regenerate_signal with a band-pass mask on the same
+    spectra. The filters reach no kernel of B1-B4 (``torch.fft``)."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch.ops import filters
+
+    nfft, hop, atol = 1024, 512, 1e-5
+    x, (t50, t300) = periodic_two_tone(seconds * sr, sr, (50e3, 300e3), 20,
+                                       noise_rms=1e-4, seed=5)
+    reset_counts()
+    t0 = time.perf_counter()
+    y = filters.filter_signal(x, sr, "lowpass", 120e3, nfft=nfft,
+                              device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    run = read_counts()
+    t0 = time.perf_counter()
+    y_cpu = filters.filter_signal(x, sr, "lowpass", 120e3, nfft=nfft,
+                                  device="cpu")
+    cpu_wall_s = time.perf_counter() - t0
+    nframes = (len(x) - nfft) // hop + 1
+    check(y.shape == y_cpu.shape == ((nframes - 1) * hop + nfft,)
+          and np.isfinite(y).all(), f"filter: output of {y.shape}")
+    sl = slice(nfft, len(y) - nfft)
+    d = float(np.abs(y[sl] - y_cpu[sl]).max())
+    check(d <= atol, f"filter: the card differs from the CPU run by {d}")
+    keep_err, cut_db = tone_checks(y, t50, t300, nfft)
+    check(keep_err < 5e-3 and cut_db < -60,
+          f"filter: kept tone off by {keep_err}, cut tone at {cut_db} dB")
+    del y, y_cpu
+    # the three steps on the card, by CUDA events
+    packed = torch.from_numpy(x.view(np.float32).reshape(-1, 2)).to(dev)
+    stft = filters.make_stft_fn(nfft=nfft, hop=hop, device=dev)
+    istft = filters.make_istft_fn(nfft=nfft, hop=hop, nframes=nframes,
+                                  device=dev)
+    mask = torch.from_numpy(filters.band_mask(nfft, sr, "lowpass", 120e3)
+                            ).to(dev)[None, :, None]
+    spectra = stft(packed)
+    masked = spectra * mask
+    stft_ms = event_ms(lambda: stft(packed), iters=5, warm=1)
+    mask_ms = event_ms(lambda: spectra * mask, iters=5, warm=1)
+    istft_ms = event_ms(lambda: istft(masked), iters=5, warm=1)
+    del masked
+    bp = filters.band_mask(nfft, sr, "bandpass", (250e3, 350e3))
+    t0 = time.perf_counter()
+    y2 = filters.regenerate_signal(spectra, nfft, hop, freq_mask=bp,
+                                   device=dev)
+    regen_s = time.perf_counter() - t0
+    regen_err, regen_cut_db = tone_checks(y2, t300, t50, nfft)
+    check(regen_err < 5e-3 and regen_cut_db < -60,
+          f"regenerate: kept tone off by {regen_err}, cut tone at "
+          f"{regen_cut_db} dB")
+    emit({"phase": "filter_full_width", "card": card, "seconds": seconds,
+          "sample_rate": sr, "n_samples": len(x), "nfft": nfft, "hop": hop,
+          "nframes": nframes, "spectra_bytes": spectra.numel() * 4,
+          "kind": "lowpass", "cutoff_hz": 120e3, "wall_s": wall_s,
+          "cpu_wall_s": cpu_wall_s, "max_abs_diff_vs_cpu": d, "atol": atol,
+          "kept_tone_max_err": keep_err, "cut_tone_db": cut_db,
+          "stft_ms": stft_ms, "mask_ms": mask_ms, "istft_ms": istft_ms,
+          "regenerate_band_hz": [250e3, 350e3], "regenerate_s": regen_s,
+          "regenerate_kept_max_err": regen_err,
+          "regenerate_cut_db": regen_cut_db, "launches": run})
+    del packed, spectra
+    torch.cuda.empty_cache()
+
+
+def run_cli(argv, **datasets):
+    """Parse ``argv`` with the port CLI's parser, put the opened datasets
+    in the place of their path arguments (``dataset=`` / ``datasets=``),
+    run the command with every launch count at 0, and return (its last
+    JSON line, what it wrote to stderr, the launches, its wall seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from pyspectrogram_tpu_torch.clients import cli
+
+    args = cli.build_parser().parse_args([str(a) for a in argv])
+    for k, v in datasets.items():
+        setattr(args, k, v)
+    out, err = io.StringIO(), io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = args.fn(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    run = read_counts()
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and lines, f"cli {argv[0]}: exit {rc}, stdout "
+                             f"{out.getvalue()[-400:]!r}")
+    return json.loads(lines[-1]), err.getvalue(), run, wall_s
+
+
+def phase_cli(dev, card, ds, ds_long, tones, tmp, window_s: float = 30.0):
+    """The pstpu-torch commands as a user runs them, through
+    ``build_parser()``, with in-memory captures in the place of the
+    dataset paths: sti at the headline shape (+ .npz and a saved session,
+    held against the same command on the CPU), resume, psd, sti-batch over
+    three captures, stream with and without --hop 2048, watch at a
+    ``window_s`` window, and sti at nfft 65536. Each command's peaks must
+    be within 0.1 dB of 0 dBFS and its kernels launched. Returns the
+    launch counts."""
+    import importlib.util
+    import re
+
+    import numpy as np
+
+    from pyspectrogram_tpu_torch.display import sti_tile
+    from pyspectrogram_tpu_torch.io.memory import MemoryDataset
+
+    sr = float(ds.sr_dict[ds.channels[0]])
+    renderer = ("matplotlib" if importlib.util.find_spec("matplotlib")
+                else "pixels" if importlib.util.find_spec("PIL") else None)
+    check(renderer is not None, "cli: neither matplotlib nor PIL is "
+                                "installed, so no PNG can be written")
+    head = ("--nfft", 4096, "--nint", 4, "--ntime", 128)
+    batch = [MemoryDataset(two_tone(128 * 4096 * 4, sr, tones, 1e-3,
+                                    seed=20 + i), sr, channel=f"cap{i}")
+             for i in range(3)]
+    t = Path(tmp)
+    cmds = [
+        ("sti", ["sti", "MEM", *head, "--out", t / "sti.png", "--npz",
+                 t / "sti.npz", "--save-session", t / "session.npz"],
+         dict(dataset=ds), ("sti_psd", "median")),
+        ("resume", ["resume", t / "session.npz", "--out", t / "resumed.png"],
+         dict(dataset=ds), ("sti_psd", "median")),
+        ("psd", ["psd", "MEM", *head, "--out", t / "psd.csv"],
+         dict(dataset=ds), ("sti_psd", "median")),
+        ("sti_batch", ["sti-batch", "A", "B", "C", *head, "--out-dir",
+                       t / "batch"], dict(datasets=batch),
+         ("sti_psd", "median_batched")),
+        ("stream", ["stream", "MEM", "--nfft", 4096, "--cols-per-block", 8,
+                    "--ring-len", 256, "--out", t / "stream.png"],
+         dict(dataset=ds), ("sti_psd", "median")),
+        ("stream_hop2048", ["stream", "MEM", "--nfft", 4096, "--hop", 2048,
+                            "--cols-per-block", 8, "--ring-len", 256,
+                            "--out", t / "stream_hop.png"],
+         dict(dataset=ds), ("stream_psd", "median")),
+        ("watch", ["watch", "MEM", "--nfft", 4096, "--hop", 2048, "--ntime",
+                   100, "--window-s", window_s, "--refresh-s", 0.0,
+                   "--iterations", 4, "--crange", -80, 0, "--out",
+                   t / "watch.png"], dict(dataset=ds_long),
+         ("stream_psd", "median")),
+        ("sti_nfft65536", ["sti", "MEM", "--nfft", 1 << 16, "--nint", 4,
+                           "--ntime", 32, "--out", t / "sti65536.png"],
+         dict(dataset=ds_long), ("big_psd",)),
+    ]
+    total = {k: 0 for k in read_counts()}
+    for label, argv, datasets, kernels in cmds:
+        res, err, run, wall_s = run_cli([*argv, "--device", dev], **datasets)
+        check(all(run[k] > 0 for k in kernels),
+              f"cli_{label}: launches {run}, expected {kernels}")
+        add_counts(total, run)
+        artifacts = []
+        if label == "psd":
+            csv = np.loadtxt(res["csv"], delimiter=",", skiprows=1)
+            check(csv.shape == (4096, 2), f"cli_psd: csv of {csv.shape}")
+            peaks = [float(csv[:, 1].max())]
+            artifacts.append(res["csv"])
+        elif label == "sti_batch":
+            check(res["batched"] == 3, f"cli_sti_batch: {res}")
+            peaks = [r["peak_dbfs"] for r in res["results"]]
+            artifacts += [r["png"] for r in res["results"]]
+        elif label == "watch":
+            peaks = [float(v) for v in re.findall(r"peak\s+(-?[\d.]+) dBFS",
+                                                  err)]
+            check(res["iterations"] == 4 and len(peaks) == 4,
+                  f"cli_watch: {res}, stderr {err[-400:]!r}")
+            artifacts.append(res["png"])
+        elif label == "resume":
+            check(res["shape"] == [4096, 128, 2], f"cli_resume: {res}")
+            peaks = [0.0]
+            artifacts.append(res["png"])
+        else:
+            peaks = [res["peak_dbfs"]]
+            artifacts.append(res["png"])
+        check(all(abs(p) <= 0.1 for p in peaks),
+              f"cli_{label}: peaks {peaks} dBFS, expected ~0")
+        for a in artifacts:
+            check(Path(a).is_file() and Path(a).stat().st_size > 0,
+                  f"cli_{label}: no {a}")
+        line = {"phase": f"cli_{label}", "card": card,
+                "argv": [str(a) for a in argv], "wall_s": wall_s,
+                "launches": run, "peaks_dbfs": peaks,
+                "artifacts": [Path(a).name for a in artifacts]
+                + (["sti.npz", "session.npz"] if label == "sti" else []),
+                "renderer": renderer}
+        if label == "sti":
+            # the same command on the CPU; the .npz on the card's renderer
+            cpu, _, _, cpu_s = run_cli([*argv[:-6], "--out", t / "cpu.png",
+                                        "--npz", t / "cpu.npz", "--device",
+                                        "cpu"], **datasets)
+            a, b = np.load(t / "sti.npz"), np.load(t / "cpu.npz")
+            check(np.array_equal(a["freqs"], b["freqs"])
+                  and np.array_equal(a["times"], b["times"]),
+                  "cli_sti: frame axes differ from the CPU run")
+            d = max(db_diff(a["sxx_dbfs"], b["sxx_dbfs"], axis=0),
+                    db_diff(a["sxx_med_dbfs"], b["sxx_med_dbfs"], axis=0),
+                    abs(res["peak_dbfs"] - cpu["peak_dbfs"]))
+            check(d <= 1e-3, f"cli_sti: dB differs from the CPU run by {d}")
+            rgba, pf = sti_tile(a["sxx_dbfs"][..., 0], a["freqs"],
+                                (-100.0, 0.0), device=dev)
+            rgba_cpu, _ = sti_tile(a["sxx_dbfs"][..., 0], a["freqs"],
+                                   (-100.0, 0.0), device="cpu")
+            check(rgba.shape == (128, len(pf), 4)
+                  and np.array_equal(rgba, rgba_cpu),
+                  "cli_sti: sti_tile on the card differs from the CPU's")
+            line.update(cpu_wall_s=cpu_s, max_db_diff_vs_cpu=d,
+                        p50_column_db=res["p50_column_db"],
+                        sti_tile_equal_cpu=True)
+        if label == "watch":
+            line["latency"] = res["latency"]
+        emit(line)
+    return total
+
+
+def phase_gui(dev, card, ds_written, ds_live, tones, tmp,
+              window_s: float = 30.0):
+    """The port's viewer on the headless widget kit: MainWindow on the
+    card, its plots recorded (recording_figure_kit: the card's machine has
+    no matplotlib), the directory dialog's answer mapped to in-memory
+    captures. One written tab at the reference default, then one live tab
+    at a ``window_s`` window (nfft 4096, hop 2048) for four refreshes:
+    each frame reaches the window and is drawn, peaks at 0 dBFS, no
+    warning dialog. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch.clients import gui
+
+    check(gui.HEADLESS, "gui: expected the headless widget kit")
+    dialogs = gui.QtWidgets
+    dialogs.QMessageBox.journal = []
+    sources = {"written": ds_written, "live": ds_live}
+    win = gui.MainWindow(device=dev, figure_kit=gui.recording_figure_kit,
+                         open_dataset=sources.__getitem__)
+    win._last_dir_file = lambda: Path(tmp) / "last_dir.txt"
+    total = {k: 0 for k in read_counts()}
+
+    def wait(pred, timeout):
+        t0 = time.perf_counter()
+        while not pred():
+            check(time.perf_counter() - t0 < timeout, "gui: timed out")
+            time.sleep(0.01)
+        return time.perf_counter() - t0
+
+    def run_tab(tab_id, label, source, n_frames, kernels, **widgets):
+        st = win.states[tab_id]
+        for name, v in widgets.items():
+            if name == "live_check":
+                st.live_check.setChecked(v)
+            else:
+                getattr(st, name).setValue(v)
+        dialogs.QFileDialog.existing_directory = source
+        reset_counts()
+        st.start_btn.click()
+        check(st.processor is not None and st.processor.is_running,
+              f"gui {label}: the tab did not start")
+        first_s = wait(lambda: st.last is not None, 120)
+        wait(lambda: st.last.i >= n_frames - 1, 120)
+        st.stop_btn.click()
+        wait(lambda: not st.processor.is_running, 60)
+        st.processor.join(30)
+        torch.cuda.synchronize()
+        run = read_counts()
+        check(all(run[k] > 0 for k in kernels),
+              f"gui {label}: launches {run}, expected {kernels}")
+        add_counts(total, run)
+        p = st.last
+        check(p.tile is not None and p.tile.dtype == np.uint8
+              and p.mask.all(), f"gui {label}: payload tile/mask")
+        peaks = []
+        for s, f in enumerate(tones):
+            med = p.sxx_med_dbfs[:, s]
+            k = int(med.argmax())
+            check(abs(p.freqs[k] - f) <= 2 * float(p.freqs[1] - p.freqs[0])
+                  and abs(med[k]) <= 0.1,
+                  f"gui {label}: sub {s} peak {med[k]} dBFS at "
+                  f"{p.freqs[k]} Hz")
+            peaks.append(float(med[k]))
+        # the frame the window drew: the waterfall from the payload's tile
+        drawn = [c for c in st.sti_ax.calls if c[0] == "pcolormesh"]
+        check(len(drawn) == 1 and np.array_equal(drawn[0][1][2],
+                                                 p.tile[:, 0, :]),
+              f"gui {label}: the window did not draw the last frame")
+        check(sum(c[0] == "plot" for c in st.psd_ax.calls) == len(tones),
+              f"gui {label}: PSD lines {st.psd_ax.calls}")
+        return {"phase": f"gui_headless_{label}", "card": card,
+                "nfft": st.processor.config.nfft,
+                "ntime": st.processor.config.ntime,
+                "streaming": st.processor.config.streaming,
+                "frames": p.i + 1, "first_frame_s": first_s,
+                "tile_shape": list(p.tile.shape), "peaks_dbfs": peaks,
+                "launches": run, "plots": "recorded"}
+
+    line = run_tab(1, "written", "written", 1, ("sti_psd", "median"))
+    emit(line)
+    win.new_tab()
+    line = run_tab(2, "live", "live", 4, ("stream_psd", "median"),
+                   live_check=True, window_s=window_s, nfft=4096,
+                   hop_w=2048)
+    eng = win.states[2].processor._live.engine
+    line.update(stream_seconds=window_s, window_cols=eng.window_cols,
+                ring_bytes=eng.state.ring.numel() * 4,
+                latency=win.states[2].processor.latency_stats())
+    emit(line)
+    check(dialogs.QMessageBox.journal == [],
+          f"gui: warnings {dialogs.QMessageBox.journal}")
+    check(win.close(), "gui: the window refused to close")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1369,9 +1739,19 @@ def main() -> int:
     stream_counts, b3_ms, b3_plain_ms, b3_push_err = phase_streaming(
         dev, card, x_long[:2 * sr], sr)
     add_counts(launches, stream_counts)
-    add_counts(launches, phase_live(dev, card, x_long, sr))
+    live_counts, b2_window = phase_live(dev, card, x_long, sr)
+    add_counts(launches, live_counts)
     add_counts(launches, phase_live_tabs(dev, card, x_long, sr))
-    del x_long
+
+    # the port's own entry points: the pstpu-torch commands and the viewer
+    # (reading from memory: the card's machine has no HDF5 reader), then
+    # the filters at full width
+    ds_long = MemoryDataset(x_long[:31 * sr], sr)
+    with tempfile.TemporaryDirectory() as tmp:
+        add_counts(launches, phase_cli(dev, card, ds, ds_long, tones, tmp))
+        add_counts(launches, phase_gui(dev, card, ds, ds_long, tones, tmp))
+    del x_long, ds_long
+    phase_filter(dev, card)
 
     # B4 at the written request's shapes: 65536 x 4 x 32 and 2^20 x 1 x 16
     b4 = {}
@@ -1409,7 +1789,9 @@ def main() -> int:
          "batched_shape": [7, 100, 1, 1024],
          "batched_ms": b2_batched[(7, 100, 1, 1024)][0],
          "batched_plain_ms": b2_batched[(7, 100, 1, 1024)][1],
-         "batched_solo_launches_ms": b2_batched[(7, 100, 1, 1024)][2]},
+         "batched_solo_launches_ms": b2_batched[(7, 100, 1, 1024)][2],
+         "window_shape": b2_window[2], "window_ms": b2_window[0],
+         "window_plain_ms": b2_window[1]},
         {"name": "stream_psd", "route": "cuda",
          "source": "pyspectrogram_tpu_torch/csrc/stream_psd.cu",
          "replaces": "pyspectrogram_tpu/kernels/sti_pallas.py:767",

@@ -1,7 +1,7 @@
 """On-device display tiles: crop + decimate + quantize on the samples'
-device — the port of quantize_tile_linear / quantize_db_tile
-(pyspectrogram_tpu/display/tile.py:109-142) and quantize_db_levels
-(pyspectrogram_tpu/display/render.py:44-55).
+device — the port of quantize_tile_linear / quantize_db_tile /
+tile_from_linear / tile_from_db (pyspectrogram_tpu/display/tile.py:109-195)
+and quantize_db_levels (pyspectrogram_tpu/display/render.py:44-55).
 
 Only the uint8 level-index tile leaves the device. The crop plan and the
 colour range come from the JAX package's jax-free :class:`TileSpec`; the
@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pyspectrogram_tpu.display import tile as _host
 from pyspectrogram_tpu.display.tile import (  # noqa: F401  (re-exported)
     TileSpec,
     make_tile_spec,
@@ -62,3 +63,22 @@ def quantize_tile_linear(p_linear: torch.Tensor, spec: TileSpec,
     hi = spec.plot_lo + spec.plot_step * (spec.plot_n - 1) + 1
     sl = p_linear[..., spec.plot_lo:hi:spec.plot_step]
     return quantize_db_tile(to_dbfs(sl, eps), spec, qparams)
+
+
+def tile_from_linear(p_linear, spec: TileSpec, eps: float = 1e-15
+                     ) -> np.ndarray:
+    """One-shot helper: linear power (a tensor on any device, or a host
+    array) -> host uint8 tile, quantized on the tensor's device."""
+    return quantize_tile_linear(torch.as_tensor(p_linear), spec,
+                                eps).cpu().numpy()
+
+
+def tile_from_db(db, spec: TileSpec) -> np.ndarray:
+    """dBFS spectra (..., nfft) -> host uint8 tile. A tensor is cropped and
+    quantized on its device before the readback; a host array takes the
+    JAX module's numpy path (the same float32 ops, bit-identical levels)."""
+    if isinstance(db, np.ndarray):
+        return _host.tile_from_db(db, spec)
+    hi = spec.plot_lo + spec.plot_step * (spec.plot_n - 1) + 1
+    return quantize_db_tile(db[..., spec.plot_lo:hi:spec.plot_step],
+                            spec).cpu().numpy()

@@ -5,7 +5,8 @@ pyspectrogram_tpu/utils/profiling.py on torch.profiler.
 stage in traces: a ``torch.profiler.record_function`` range, plus an NVTX
 range when CUDA is present. :func:`device_trace` records CPU and CUDA
 activity into a Chrome trace, and :func:`device_busy_share` reads from one
-how much of a marked span the device was busy.
+how much of a marked span the device was busy. :data:`GLOBAL_TIMER` is
+the process-wide timer, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -76,6 +77,11 @@ class StageTimer:
     def reset(self) -> None:
         with self._lock:
             self._samples.clear()
+
+
+#: process-wide default timer (the JAX module's GLOBAL_TIMER; no stage of
+#: either package records into it — callers time their own stages)
+GLOBAL_TIMER = StageTimer()
 
 
 @contextlib.contextmanager

@@ -167,14 +167,18 @@ def test_cuda_device_raises_without_gpu(tone_capture):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing the port and running a request (prefetch branch included),
-    a streaming push, a live tick, a merged scheduler cycle and a
-    streaming processor leaves jax out of the process; a fresh
-    interpreter, since this one already holds jax."""
+    """Importing the port (its clients included) and running a request
+    (prefetch branch included), a streaming push, a live tick, a merged
+    scheduler cycle, a streaming processor, a filter and a CLI ``sti``
+    leaves jax out of the process; a fresh interpreter, since this one
+    already holds jax."""
     code = textwrap.dedent(f"""
         import sys
         import numpy as np
         import pyspectrogram_tpu_torch
+        import pyspectrogram_tpu_torch.clients.cli as cli
+        import pyspectrogram_tpu_torch.clients.gui
+        import pyspectrogram_tpu_torch.display.render
         import pyspectrogram_tpu_torch.display.tile
         import pyspectrogram_tpu_torch.io.ingest
         import pyspectrogram_tpu_torch.io.memory
@@ -185,6 +189,7 @@ def test_port_never_imports_jax(tmp_path):
         import pyspectrogram_tpu_torch.kernels.sti_cuda
         import pyspectrogram_tpu_torch.models.sti as sti
         import pyspectrogram_tpu_torch.models.streaming as streaming
+        import pyspectrogram_tpu_torch.ops.filters as filters
         import pyspectrogram_tpu_torch.ops.plain
         import pyspectrogram_tpu_torch.ops.stft
         import pyspectrogram_tpu_torch.ops.windows
@@ -227,10 +232,17 @@ def test_port_never_imports_jax(tmp_path):
             device="cpu")
         live_tab.run()
         assert live_tab.has_live_state
+        y = filters.filter_signal(np.ones(4096, np.complex64), 1e6,
+                                  "lowpass", 1e5, nfft=256, device="cpu")
+        assert y.shape == (4096,)
+        assert cli.main(["sti", {str(tmp_path)!r}, "--nfft", "256",
+                         "--ntime", "8", "--renderer", "pixels", "--out",
+                         {str(tmp_path / "sti.png")!r}, "--device",
+                         "cpu"]) == 0
         assert "jax" not in sys.modules, "a request loaded jax"
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "ok"
+    assert res.stdout.strip().splitlines()[-1] == "ok"

@@ -393,6 +393,28 @@ def test_stage_timer_stats():
     assert t.stats() == {}
 
 
+def test_global_timer_is_one_process_wide_timer():
+    """utils.profiling.GLOBAL_TIMER: one StageTimer per process, as in the
+    JAX module, that callers record their own stages into."""
+    from pyspectrogram_tpu.utils import profiling as jprofiling
+    from pyspectrogram_tpu_torch.utils.profiling import GLOBAL_TIMER
+
+    assert GLOBAL_TIMER is profiling.GLOBAL_TIMER
+    assert isinstance(GLOBAL_TIMER, profiling.StageTimer)
+    assert GLOBAL_TIMER is not jprofiling.GLOBAL_TIMER
+    jax_before = jprofiling.GLOBAL_TIMER.stats()
+    GLOBAL_TIMER.reset()
+    try:
+        with GLOBAL_TIMER.stage("io"):
+            pass
+        GLOBAL_TIMER.record("io", 0.25)
+        assert GLOBAL_TIMER.stats("io")["n"] == 2
+        assert jprofiling.GLOBAL_TIMER.stats() == jax_before
+    finally:
+        GLOBAL_TIMER.reset()
+    assert GLOBAL_TIMER.stats() == {}
+
+
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     """device_trace records the stages on the CPU too; the busy share of
     a span with no device activity is 0."""

@@ -334,3 +334,39 @@ def test_stream_columns_equal_plain_at_hop_starts(hop):
     want = stft.psd_torch(buf, torch.arange(k, dtype=torch.int32) * hop,
                           nfft=1024)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["complex64", "int16"])
+def test_stream_blocks_match_jax_feeder(tmp_path, dtype):
+    """io.ingest.stream_blocks yields the JAX feeder's plane-major blocks,
+    bit for bit, in their storage dtype; they feed the port's ring like
+    the JAX ring."""
+    from pyspectrogram_tpu.clients.cli import SYNTH_DTYPES
+    from pyspectrogram_tpu.io import RFDataset
+    from pyspectrogram_tpu.io.ingest import stream_blocks as jstream_blocks
+    from pyspectrogram_tpu.io.synthetic import write_capture
+    from pyspectrogram_tpu_torch.io.ingest import stream_blocks
+
+    write_capture(tmp_path, channel="c", kind="tone", n_samples=1 << 14,
+                  num_subchannels=2, dtype=SYNTH_DTYPES[dtype])
+    ds = RFDataset(tmp_path)
+    lo, _ = ds.bnds["c"]
+    got = list(stream_blocks(ds, "c", lo + 100, 1024, 6))
+    with jstream_blocks(ds, "c", lo + 100, 1024, 6) as feeder:
+        want = [np.asarray(b) for b in feeder]
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert isinstance(g, np.ndarray) and g.shape == (4, 1024)
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    s, js = _pair(nfft=256, nsub=2, block_len=1024, ring_len=32,
+                  ref=ds.ref_dict["c"])
+    state, jstate = s.init_state(), js.init_state()
+    for g, w in zip(got, want):
+        state, _ = s.push(state, torch.from_numpy(g), return_db=False)
+        jstate, _ = js.push(jstate, jnp.asarray(w), return_db=False)
+    got_med, want_med = s.median_psd(state), np.asarray(
+        js.median_psd(jstate))
+    keep = want_med >= want_med.max(axis=-1, keepdims=True) - 60.0
+    np.testing.assert_allclose(got_med[keep], want_med[keep], atol=1e-4,
+                               rtol=0)
