@@ -34,8 +34,14 @@ drives the port's paths on the card, checking what comes out:
 - filter_signal over a 30 s, 1 MS/s two-tone capture (58,592 frames of
   nfft 1024) against the same call on the CPU, and regenerate_signal;
 
-then times kernels, pushes, ticks and requests with CUDA events and the
-wall clock. Every phase prints one JSON line; the last line is
+B2 is held bit for bit to its plain version on adversarial cubes too
+(ties across the middle, +-0, subnormals, +-inf, all-equal columns, n on
+both sides of its tile/radix boundary, odd and even, a batch of 7), in
+each of its two designs. Then it times kernels, pushes, ticks and requests
+with CUDA events and the wall clock, and computes each kernel's bound (the
+least time an H100 needs to move its bytes or do its float32 operations)
+beside the one PyTorch call that computes the same function where there is
+one (``torch.median``, ``torch.quantile``). Every phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the exit
 code is then non-zero. Needs one CUDA device; imports torch, numpy and the
 port only.
@@ -64,6 +70,53 @@ B4_RTOL, B4_MEAN_ATOL = 2e-3, 1e-4
 #: display colour range of the streaming tiles (dBFS): full-scale tones and
 #: their sidelobes, with the floor above the captures' noise
 COLOR_RANGE_DB = (-80.0, 0.0)
+
+
+#: an H100 SXM's published peaks at 700 W (NVIDIA's data sheet): HBM
+#: bandwidth and float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the least time for work that moves ``nbytes``
+    (each input read once, each output written once) and does ``flops``
+    float32 operations, the larger of the two times on an H100."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def psd_bound(inputs, out, nfft: int, n_transforms: int):
+    """Bound of a PSD kernel: its input tensors read and its output written
+    once; per transform 5 N log2 N for the FFT plus 7 N for the window,
+    |X|^2, the Welch sum and the scale."""
+    import math
+
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, out))
+    return bound(nbytes, n_transforms * (5 * nfft * math.log2(nfft)
+                                         + 7 * nfft))
+
+
+def median_bound(p, out):
+    """Bound of B2: the cube read once, the medians written once, one
+    comparison per element."""
+    return bound((p.numel() + out.numel()) * 4, p.numel())
+
+
+def fft_alone_ms(samples_pm, starts, nfft: int, frame_len: int, iters=20):
+    """torch.fft.fft over the same windowed complex frames a PSD kernel
+    transforms (frames built outside the timing): the FFT alone, for
+    context; no single PyTorch call computes window + FFT + |X|^2 + Welch
+    sum + fftshift."""
+    import torch
+
+    st = starts.to(torch.int64)
+    idx = st[:, None] + torch.arange(frame_len, device=samples_pm.device)
+    fr = samples_pm[:, idx].to(torch.float32)
+    c = torch.complex(fr[0::2], fr[1::2]).reshape(fr.shape[0] // 2, -1, nfft)
+    c = c * torch.hann_window(nfft, periodic=True, device=c.device)
+    return event_ms(lambda: torch.fft.fft(c), iters=iters)
 
 
 def live_samples(sr: int) -> int:
@@ -132,6 +185,44 @@ def event_ms(fn, iters=50, warm=5):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, iters=20, tries=5):
+    """Mean device time per call of what ``fn`` runs on the card (kernels,
+    memsets), summed from a torch.profiler trace: the work itself, without
+    the host's gaps between calls that event_ms also counts when the host
+    launches slower than the card finishes.
+
+    A trace of CUDA activity now and then comes back without a device
+    event. Such a trace is taken again, up to ``tries`` traces in all;
+    when none of them holds device time the result is None (printed as
+    null) and a note goes to stderr. The number is context beside the
+    CUDA-event ``ms``, which every kernel entry has, so a missing trace
+    does not fail the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        total_us = sum(float(e.get("dur", 0.0)) for e in events
+                       if e.get("cat") in ("kernel", "gpu_memset"))
+        if total_us > 0:
+            return total_us / 1e3 / iters
+        print(f"chip_smoke: trace {attempt} of {tries} held no device "
+              "event", file=sys.stderr, flush=True)
+    print("chip_smoke: device_ms is null: no trace held device time",
+          file=sys.stderr, flush=True)
+    return None
 
 
 def in_turns(plain_fn, kernel_fn, iters=50):
@@ -209,6 +300,124 @@ def check_tiles(got, want, what: str) -> int:
     check(d.max() <= 1 and n <= 1e-3 * got.size,
           f"{what}: tiles differ on {n} pixels, by up to {d.max()}")
     return n
+
+
+def adversarial_cube(kind: str, n: int, cols: int, seed: int):
+    """(n, cols) float32 cube for B2: exponential power, ties across the
+    middle, +-0 / subnormals / +-inf, or all-equal columns."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if kind == "exponential":
+        return rng.exponential(size=(n, cols)).astype(np.float32)
+    if kind == "ties":
+        p = rng.integers(0, 4, (n, cols)).astype(np.float32)
+        p[:, ::3] = 2.0
+        return p
+    if kind == "specials":
+        vals = np.array([-np.inf, -1.5, -1e-40, -1e-45, -0.0, 0.0, 1e-45,
+                         1e-40, 1.17549435e-38, 3.0, np.inf], np.float32)
+        p = vals[rng.integers(0, len(vals), (n, cols))]
+        p[:, 0] = np.where(np.arange(n) % 2, np.float32(-0.0),
+                           np.float32(0.0))
+        p[:, 1] = np.where(np.arange(n) < n // 2, np.float32(-1e-45),
+                           np.float32(0.0))
+        return p
+    p = np.empty((n, cols), np.float32)                 # all-equal columns
+    p[:] = rng.exponential(size=cols).astype(np.float32)
+    p[:, 0], p[:, 1], p[:, 2] = -0.0, np.inf, -np.inf
+    return p
+
+
+def b2_check(got, pd, p_host, what: str, batched: bool = False) -> None:
+    """B2's result ``got`` bit-equal to median_bisect on the card and
+    equal (NaN where NaN, -0 == +0) to np.median of the host copy."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch.ops import plain
+
+    want = (torch.stack([plain.median_bisect(q) for q in pd]) if batched
+            else plain.median_bisect(pd))
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          f"B2 is not median_bisect's bits: {what}")
+    npm = np.median(p_host, axis=1 if batched else 0).astype(np.float32)
+    check(np.array_equal(got.cpu().numpy(), npm, equal_nan=True),
+          f"B2 is not np.median: {what}")
+
+
+def b2_in(design: str, fn):
+    """``fn()`` with kernel B2 forced into one of its designs (the wrapper
+    picks by n through median_cuda.regime; the tile design's own check
+    refuses an n whose tile does not fit)."""
+    from pyspectrogram_tpu_torch.kernels import median_cuda
+
+    pick = median_cuda.regime
+    median_cuda.regime = lambda n: design
+    try:
+        return fn()
+    finally:
+        median_cuda.regime = pick
+
+
+def phase_b2(dev, rng):
+    """B2 against median_bisect (bits) and np.median (values): PR 1's
+    exponential cubes with runs of duplicates, then adversarial cubes at
+    n on both sides of the tile/radix boundary, odd and even, with column
+    counts that take 16-byte loads and ones that do not, a misaligned
+    buffer, and a batch of 7; each design the tile fits is run."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch.kernels import median_cuda
+
+    cases = 0
+    for n in (33, 64, 100, 128, 129):
+        for m in (1, 2):
+            for nfft in (1024, 4096):
+                p = rng.exponential(size=(n, m, nfft)).astype(np.float32)
+                p[: n // 3, :, : nfft // 4] = p[n // 3, :, : nfft // 4]
+                pd = torch.from_numpy(p).to(dev)
+                b2_check(median_cuda.median_over_time_cuda(pd), pd, p,
+                         f"n={n} m={m} nfft={nfft}")
+                cases += 1
+    kinds = ("exponential", "ties", "specials", "equal")
+    ns = (33, 34, 127, 128, 129, 682, 683, 2047, 2048, 14649, 14650)
+    for n in ns:
+        for kind in kinds:
+            for cols in ((4096 if n < 4096 else 512), 37):
+                p = adversarial_cube(kind, n, cols, seed=n + cols)
+                pd = torch.from_numpy(p).to(dev)
+                designs = ["radix"] + (["tile"] if median_cuda.regime(n)
+                                       == "tile" else [])
+                for design in designs:
+                    got = b2_in(design, lambda: median_cuda
+                                .median_over_time_cuda(pd))
+                    b2_check(got, pd, p,
+                             f"{kind} n={n} cols={cols} {design}")
+                    cases += 1
+        # a buffer 4 bytes off 16-byte alignment: the radix design's
+        # 4-byte loads
+        p = adversarial_cube("exponential", n, 64, seed=n)
+        flat = torch.empty(p.size + 1, device=dev)
+        pd = flat[1:].view(n, 64)
+        pd.copy_(torch.from_numpy(p))
+        got = b2_in("radix", lambda: median_cuda.median_over_time_cuda(pd))
+        b2_check(got, pd, p, f"misaligned n={n}")
+        cases += 1
+    for n in (100, 2048, 2049):
+        p = np.stack([adversarial_cube(kinds[b % 4], n, 1024, seed=10 * b)
+                      for b in range(7)])
+        pd = torch.from_numpy(p).to(dev)
+        for design in ["radix"] + (["tile"] if median_cuda.regime(n)
+                                   == "tile" else []):
+            got = b2_in(design, lambda: median_cuda.median_over_time_cuda(
+                pd, batched=True))
+            b2_check(got, pd, p, f"batch of 7 n={n} {design}", batched=True)
+            cases += 1
+    emit({"phase": "b2_vs_plain", "cases": cases, "max_abs_err": 0.0,
+          "adversarial_n": list(ns), "kinds": list(kinds)})
 
 
 def phase_b3(dev, gen):
@@ -371,8 +580,8 @@ def phase_big_requests(dev, ds, tones, launches):
 def phase_streaming(dev, card, x, sr):
     """StreamingSti at the JAX bench's streaming shapes (bench.py:133-185),
     against the same pushes on the CPU; then the push timings. Returns
-    (launch counts of the runs, B3 ms and plain ms on the overlap2048
-    push buffer, B3's error there)."""
+    (launch counts of the runs, B3's numbers on the overlap2048 push
+    buffer: ms, plain ms, error, FFT-alone ms and bound)."""
     import numpy as np
     import torch
 
@@ -473,10 +682,18 @@ def phase_streaming(dev, card, x, sr):
         lambda: plain.psd_torch(buf, starts, nfft=nfft),
         lambda: stream_cuda.stream_psd_cuda(buf, nfft=nfft, hop=2048),
         iters=200)
+    b3 = dict(ms=b3_ms, plain_ms=b3_plain_ms, err=err,
+              device_ms=device_ms(lambda: stream_cuda.stream_psd_cuda(
+                  buf, nfft=nfft, hop=2048), iters=50),
+              fft_alone_ms=fft_alone_ms(buf, starts, nfft, nfft, iters=200),
+              bound=psd_bound((buf,), got, nfft, k * nsub))
     emit({"phase": "timing_b3_overlap2048", "card": card, "nfft": nfft,
           "hop": 2048, "k": k, "nsub": nsub, "b3_max_abs_err": err,
-          "b3_ms": b3_ms, "b3_plain_ms": b3_plain_ms})
-    return total, b3_ms, b3_plain_ms, err
+          "b3_ms": b3_ms, "b3_plain_ms": b3_plain_ms,
+          "b3_device_ms": b3["device_ms"],
+          "b3_fft_alone_ms": b3["fft_alone_ms"],
+          "b3_bound_ms": b3["bound"][0], "b3_bound_by": b3["bound"][1]})
+    return total, b3
 
 
 def phase_live(dev, card, x, sr):
@@ -600,7 +817,20 @@ def phase_live(dev, card, x, sr):
     b2_ms, b2_plain_ms = in_turns(
         lambda: plain.median_bisect(window),
         lambda: median_cuda.median_over_time_cuda(window), iters=5)
-    b2_window = (b2_ms, b2_plain_ms, list(window.shape))
+    # the library yardstick: torch.median, the same function at odd n
+    med_k = median_cuda.median_over_time_cuda(window)
+    lib_ms = event_ms(lambda: torch.median(window, dim=0).values, iters=5,
+                      warm=1)
+    lib_equal = torch.equal(torch.median(window, dim=0).values, med_k)
+    win_dev_ms = device_ms(
+        lambda: median_cuda.median_over_time_cuda(window), iters=5)
+    b2_window = dict(ms=b2_ms, plain_ms=b2_plain_ms, library_ms=lib_ms,
+                     device_ms=win_dev_ms,
+                     library_bit_equal=lib_equal,
+                     bound=median_bound(window, med_k),
+                     shape=list(window.shape),
+                     design=median_cuda.regime(window.shape[0]))
+    del med_k
     gather_ms = event_ms(lambda: eng.state.ring.index_select(0, rows),
                          iters=5, warm=1)
     emit({"phase": "live_full_width", "card": card, "sample_rate": sr,
@@ -613,6 +843,11 @@ def phase_live(dev, card, x, sr):
           "tick_n": len(walls), "tick_p50_ms": tick_p50,
           "tick_p90_ms": tick_p90, "b2_window_ms": b2_ms,
           "b2_window_plain_ms": b2_plain_ms,
+          "b2_window_device_ms": win_dev_ms,
+          "b2_window_library": "torch.median",
+          "b2_window_library_ms": lib_ms,
+          "b2_window_library_bit_equal": lib_equal,
+          "b2_window_bound_ms": b2_window["bound"][0],
           "b2_share_of_tick_p50": b2_ms / tick_p50,
           "window_gather_ms": gather_ms})
     del eng, window
@@ -672,8 +907,9 @@ def phase_b2_batched(dev, card, rng):
     """B2 over a batch of requests against its plain version
     (median_bisect per request) and np.median, bit for bit, at the merged
     launches' shapes and an odd n; then timed in turns against the plain
-    version and against B solo launches. Returns {shape: (kernel ms,
-    plain ms, solo ms)}."""
+    version and against B solo launches, and beside torch.quantile's
+    midpoint median over the same axis (the library yardstick). Returns
+    {shape: dict of ms, plain_ms, solo_ms, library_ms, bound}."""
     import numpy as np
     import torch
 
@@ -708,11 +944,28 @@ def phase_b2_batched(dev, card, rng):
         k2_ms, solo_ms = in_turns(solo, lambda: median_cuda
                                   .median_over_time_cuda(pd, batched=True),
                                   iters=50)
-        out[shape] = ((k_ms + k2_ms) / 2, plain_ms, solo_ms)
+        q = pd.reshape(B, n, -1)
+
+        def quantile():
+            return torch.quantile(q, 0.5, dim=1, interpolation="midpoint")
+
+        lib_ms = event_ms(quantile, iters=20)
+        lib_equal = torch.equal(quantile().reshape(got.shape), got)
+        dev_ms = device_ms(lambda: median_cuda.median_over_time_cuda(
+            pd, batched=True))
+        out[shape] = dict(ms=(k_ms + k2_ms) / 2, plain_ms=plain_ms,
+                          device_ms=dev_ms,
+                          solo_ms=solo_ms, library_ms=lib_ms,
+                          library_bit_equal=lib_equal,
+                          bound=median_bound(pd, got))
         emit({"phase": "b2_batched_vs_plain", "card": card,
               "shape": list(shape), "max_abs_err": 0.0,
-              "batched_ms": out[shape][0], "plain_ms": plain_ms,
-              "solo_launches_ms": solo_ms})
+              "batched_ms": out[shape]["ms"], "plain_ms": plain_ms,
+              "solo_launches_ms": solo_ms, "device_ms": dev_ms,
+              "library": "torch.quantile(midpoint)", "library_ms": lib_ms,
+              "library_bit_equal": lib_equal,
+              "bound_ms": out[shape]["bound"][0],
+              "design": median_cuda.regime(n)})
     return out
 
 
@@ -1533,21 +1786,9 @@ def main() -> int:
     emit({"phase": "b1_vs_plain", "cases": n_cases, "max_abs_err": b1_err,
           "rtol": 2e-4, "atol": 1e-6})
 
-    # phase 3: B2 against its plain version and np.median, bit for bit
-    b2_cases = 0
-    for n in (33, 64, 100, 128, 129):
-        for m in (1, 2):
-            for nfft in (1024, 4096):
-                p = rng.exponential(size=(n, m, nfft)).astype(np.float32)
-                p[: n // 3, :, : nfft // 4] = p[n // 3, :, : nfft // 4]
-                pd = torch.from_numpy(p).to(dev)
-                got = median_cuda.median_over_time_cuda(pd).cpu().numpy()
-                want = np.median(p, axis=0).astype(np.float32)
-                check(np.array_equal(got, plain.median_bisect(pd).cpu().numpy())
-                      and np.array_equal(got, want),
-                      f"B2 is not bit-exact at n={n} m={m} nfft={nfft}")
-                b2_cases += 1
-    emit({"phase": "b2_vs_plain", "cases": b2_cases, "max_abs_err": 0.0})
+    # phase 3: B2 against its plain version and np.median, bit for bit,
+    # adversarial cubes included, in both of its designs
+    phase_b2(dev, rng)
 
     # B3 and B4 against their plain versions
     gen = torch.Generator(device=dev)
@@ -1675,6 +1916,22 @@ def main() -> int:
         b2_ms, b2_plain_ms = in_turns(
             lambda: plain.median_bisect(p),
             lambda: median_cuda.median_over_time_cuda(p))
+        # the library yardstick: torch.quantile's midpoint median (its
+        # input limit is 2^24 elements; both shapes are under it)
+        q2d = p.reshape(p.shape[0], -1)
+        med = median_cuda.median_over_time_cuda(p)
+
+        def quantile():
+            return torch.quantile(q2d, 0.5, dim=0, interpolation="midpoint")
+
+        b2_lib_ms = event_ms(quantile)
+        b2_lib_equal = torch.equal(quantile().reshape(med.shape), med)
+        b1_fft_ms = fft_alone_ms(xd, sd, cfg.nfft, cfg.nfft * cfg.nint)
+        n_tr = cfg.ntime * 2 * (cfg.nint if cfg.mode == "welch" else 1)
+        b1_bound = psd_bound((xd, sd), p, cfg.nfft, n_tr)
+        b2_bound = median_bound(p, med)
+        b1_dev_ms = device_ms(lambda: sti_cuda.sti_psd_cuda(xd, sd, **psd_kw))
+        b2_dev_ms = device_ms(lambda: median_cuda.median_over_time_cuda(p))
         fn = stft.make_sti_fn_pm(nfft=cfg.nfft, nint=cfg.nint,
                                  mode=cfg.mode, contiguous=True)
         program_ms = event_ms(lambda: fn(xd, sd))
@@ -1689,7 +1946,12 @@ def main() -> int:
             pm, starts, mask, cfg, 1.0, ds.sr_dict[chan], n_st))
         req_ms = wall_ms(pipe.compute)
         timing[label] = dict(b1_ms=b1_ms, b1_plain_ms=b1_plain_ms,
-                             b2_ms=b2_ms, b2_plain_ms=b2_plain_ms)
+                             b1_fft_alone_ms=b1_fft_ms, b1_bound=b1_bound,
+                             b1_device_ms=b1_dev_ms, b2_device_ms=b2_dev_ms,
+                             b2_ms=b2_ms, b2_plain_ms=b2_plain_ms,
+                             b2_library_ms=b2_lib_ms,
+                             b2_library_bit_equal=b2_lib_equal,
+                             b2_bound=b2_bound)
         emit({"phase": f"timing_{label}", "card": card,
               "nfft": cfg.nfft, "nint": cfg.nint, "ntime": cfg.ntime,
               "nsub": 2, "samples_per_request": n_proc,
@@ -1697,7 +1959,15 @@ def main() -> int:
               "b1_ms": b1_ms, "b1_plain_ms": b1_plain_ms,
               "b1_samples_per_s": n_proc / (b1_ms * 1e-3),
               "b1_plain_samples_per_s": n_proc / (b1_plain_ms * 1e-3),
+              "b1_device_ms": b1_dev_ms, "b2_device_ms": b2_dev_ms,
+              "b1_fft_alone_ms": b1_fft_ms, "b1_bound_ms": b1_bound[0],
+              "b1_bound_by": b1_bound[1],
               "b2_ms": b2_ms, "b2_plain_ms": b2_plain_ms,
+              "b2_library": "torch.quantile(midpoint)",
+              "b2_library_ms": b2_lib_ms,
+              "b2_library_bit_equal": b2_lib_equal,
+              "b2_bound_ms": b2_bound[0], "b2_design":
+                  median_cuda.regime(cfg.ntime),
               "device_program_ms": program_ms,
               "device_program_samples_per_s": n_proc / (program_ms * 1e-3),
               "h2d_ms": h2d_ms, "h2d_bytes": pm.nbytes,
@@ -1736,8 +2006,7 @@ def main() -> int:
     x_long = long_two_tone(live_samples(sr), noise_rms=1e-3, seed=2)
     phase_big_requests(dev, MemoryDataset(x_long[:31 * sr], sr), tones,
                        launches)
-    stream_counts, b3_ms, b3_plain_ms, b3_push_err = phase_streaming(
-        dev, card, x_long[:2 * sr], sr)
+    stream_counts, b3 = phase_streaming(dev, card, x_long[:2 * sr], sr)
     add_counts(launches, stream_counts)
     live_counts, b2_window = phase_live(dev, card, x_long, sr)
     add_counts(launches, live_counts)
@@ -1759,50 +2028,86 @@ def main() -> int:
         xd = torch.randn((4, nfft * nint * ntime), generator=gen, device=dev)
         sd = torch.arange(ntime, dtype=torch.int32, device=dev) * nfft * nint
         psd_kw = dict(nfft=nfft, nint=nint, mode="welch")
-        e, r, over = b4_errors(big_cuda.big_psd_cuda(xd, sd, **psd_kw),
-                               plain.psd_torch(xd, sd, **psd_kw))
+        got = big_cuda.big_psd_cuda(xd, sd, **psd_kw)
+        e, r, over = b4_errors(got, plain.psd_torch(xd, sd, **psd_kw))
         check(over <= 1.0, f"B4 at nfft {nfft}: max rel {r}")
         b4_err = max(b4_err, e)
         b4[nfft] = in_turns(lambda: plain.psd_torch(xd, sd, **psd_kw),
                             lambda: big_cuda.big_psd_cuda(xd, sd, **psd_kw),
                             iters=20)
+        b4[nfft] += (fft_alone_ms(xd, sd, nfft, nfft * nint),
+                     psd_bound((xd, sd), got, nfft, ntime * 2 * nint),
+                     device_ms(lambda: big_cuda.big_psd_cuda(xd, sd, **psd_kw),
+                               iters=5))
+        del got
         n_proc = nfft * nint * ntime * 2
         emit({"phase": f"timing_b4_nfft{nfft}", "card": card, "nfft": nfft,
               "nint": nint, "ntime": ntime, "nsub": 2,
               "b4_max_abs_err": e, "b4_max_rel_err": r,
               "b4_ms": b4[nfft][0], "b4_plain_ms": b4[nfft][1],
+              "b4_fft_alone_ms": b4[nfft][2], "b4_bound_ms": b4[nfft][3][0],
+              "b4_bound_by": b4[nfft][3][1], "b4_device_ms": b4[nfft][4],
               "b4_samples_per_s": n_proc / (b4[nfft][0] * 1e-3)})
 
     head = timing["headline"]
+    bat = b2_batched[(7, 100, 1, 1024)]
+    # library_ms: one PyTorch call computing the same function, where one
+    # exists; no single call computes B1, B3 or B4 (window + FFT + |X|^2 +
+    # Welch sum + fftshift), so theirs is null and fft_alone_ms times
+    # torch.fft.fft over the same windowed frames for context
     emit({"kernels": [
         {"name": "sti_psd", "route": "cuda",
          "source": "pyspectrogram_tpu_torch/csrc/sti_psd.cu",
          "replaces": "pyspectrogram_tpu/kernels/sti_pallas.py:409",
          "launches": launches["sti_psd"], "max_abs_err": b1_err,
-         "ms": head["b1_ms"], "plain_ms": head["b1_plain_ms"]},
+         "ms": head["b1_ms"], "plain_ms": head["b1_plain_ms"],
+         "device_ms": head["b1_device_ms"],
+         "bound_ms": head["b1_bound"][0], "bound_by": head["b1_bound"][1],
+         "library_ms": None, "fft_alone_ms": head["b1_fft_alone_ms"]},
         {"name": "median", "route": "cuda",
          "source": "pyspectrogram_tpu_torch/csrc/median.cu",
          "replaces": "pyspectrogram_tpu/kernels/median_pallas.py:77",
          "launches": launches["median"], "max_abs_err": 0.0,
          "ms": head["b2_ms"], "plain_ms": head["b2_plain_ms"],
+         "device_ms": head["b2_device_ms"],
+         "bound_ms": head["b2_bound"][0], "bound_by": head["b2_bound"][1],
+         "library_ms": head["b2_library_ms"],
+         "library": "torch.quantile(midpoint)",
+         "library_bit_equal": head["b2_library_bit_equal"],
          "batched_launches": launches["median_batched"],
          "batched_shape": [7, 100, 1, 1024],
-         "batched_ms": b2_batched[(7, 100, 1, 1024)][0],
-         "batched_plain_ms": b2_batched[(7, 100, 1, 1024)][1],
-         "batched_solo_launches_ms": b2_batched[(7, 100, 1, 1024)][2],
-         "window_shape": b2_window[2], "window_ms": b2_window[0],
-         "window_plain_ms": b2_window[1]},
+         "batched_ms": bat["ms"], "batched_plain_ms": bat["plain_ms"],
+         "batched_solo_launches_ms": bat["solo_ms"],
+         "batched_device_ms": bat["device_ms"],
+         "batched_library_ms": bat["library_ms"],
+         "batched_library_bit_equal": bat["library_bit_equal"],
+         "batched_bound_ms": bat["bound"][0],
+         "window_shape": b2_window["shape"], "window_ms": b2_window["ms"],
+         "window_plain_ms": b2_window["plain_ms"],
+         "window_device_ms": b2_window["device_ms"],
+         "window_library_ms": b2_window["library_ms"],
+         "window_library": "torch.median",
+         "window_library_bit_equal": b2_window["library_bit_equal"],
+         "window_bound_ms": b2_window["bound"][0]},
         {"name": "stream_psd", "route": "cuda",
          "source": "pyspectrogram_tpu_torch/csrc/stream_psd.cu",
          "replaces": "pyspectrogram_tpu/kernels/sti_pallas.py:767",
          "launches": launches["stream_psd"],
-         "max_abs_err": max(b3_err, b3_push_err),
-         "ms": b3_ms, "plain_ms": b3_plain_ms},
+         "max_abs_err": max(b3_err, b3["err"]),
+         "ms": b3["ms"], "plain_ms": b3["plain_ms"],
+         "device_ms": b3["device_ms"],
+         "bound_ms": b3["bound"][0], "bound_by": b3["bound"][1],
+         "library_ms": None, "fft_alone_ms": b3["fft_alone_ms"]},
         {"name": "big_psd", "route": "cuda",
          "source": "pyspectrogram_tpu_torch/csrc/big_psd.cu",
          "replaces": "pyspectrogram_tpu/kernels/sti_pallas.py:970",
          "launches": launches["big_psd"], "max_abs_err": b4_err,
-         "ms": b4[1 << 16][0], "plain_ms": b4[1 << 16][1]},
+         "ms": b4[1 << 16][0], "plain_ms": b4[1 << 16][1],
+         "device_ms": b4[1 << 16][4],
+         "bound_ms": b4[1 << 16][3][0], "bound_by": b4[1 << 16][3][1],
+         "library_ms": None, "fft_alone_ms": b4[1 << 16][2],
+         "nfft1048576_ms": b4[1 << 20][0],
+         "nfft1048576_bound_ms": b4[1 << 20][3][0]},
     ]})
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was never launched on the port's paths")

@@ -12,12 +12,13 @@ cross-load with the JAX package's. The multi-tab runtime:
 (kernel B2 takes the batch of medians), and runtime.SpectrogramProcessor
 and runtime.SharedRefreshScheduler drive written and streaming tabs. The
 JAX package beside it is the reference the tests hold this one against;
-this package never imports jax. The request state,
-:class:`SpectrogramConfig`, is the JAX package's own (its utils.config is
-jax-free).
+this package imports neither jax nor anything of that package: the
+request state (:class:`SpectrogramConfig`), the Digital RF reader and
+writer, the native ingest, the colormaps and the headless widget kit are
+the port's own copies (utils, io, native, display, clients).
 """
 
-from pyspectrogram_tpu.utils.config import SpectrogramConfig  # noqa: F401
+from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig  # noqa: F401
 from pyspectrogram_tpu_torch.models.batch import BatchedStiPipeline  # noqa: F401
 from pyspectrogram_tpu_torch.models.sti import StiPipeline, StiResult  # noqa: F401
 from pyspectrogram_tpu_torch.models.streaming import StreamingSti  # noqa: F401

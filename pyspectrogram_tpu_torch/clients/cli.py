@@ -20,8 +20,9 @@ The same subcommands, flags and JSON lines as pyspectrogram_tpu's ``pstpu``
 One flag is added: ``--device`` on every command that computes ("cuda" by
 default, or e.g. "cpu", "cuda:1"). With no CUDA device and no ``--device``,
 a command prints a JSON error and exits 1; it never falls back to the CPU
-by itself. ``info``, ``synth`` and the argument helpers are the JAX CLI's
-own (that module imports jax only inside its commands).
+by itself. ``info``, ``synth`` and the argument helpers are copies of the
+JAX CLI's (pyspectrogram_tpu/clients/cli.py), on the port's own reader,
+writer and config: the port imports nothing of that package.
 
 :func:`build_parser` returns the parser; a dataset argument may also be an
 opened RFDataset (such as io.memory.MemoryDataset) set on the parsed
@@ -37,14 +38,6 @@ import json
 import sys
 
 import numpy as np
-
-from pyspectrogram_tpu.clients.cli import (  # noqa: F401  (re-exported)
-    SYNTH_DTYPES,
-    _add_common,
-    _config_from,
-    cmd_info,
-    cmd_synth,
-)
 
 NO_CUDA = ("torch sees no CUDA device: pass --device cpu (or another torch "
            "device) to run elsewhere")
@@ -70,9 +63,53 @@ def _on_device(cmd):
     return run
 
 
+def cmd_info(args) -> int:
+    from pyspectrogram_tpu_torch.io import RFDataset, sample_to_datetime
+
+    ds = RFDataset(args.dataset)
+    out = {}
+    for chan in ds.channels:
+        lo, hi = ds.bnds[chan]
+        sr = ds.sr_dict[chan]
+        out[chan] = {
+            "sample_rate": str(sr),
+            "num_subchannels": int(len(ds.chan_2sub[chan])),
+            "bounds": [int(lo), int(hi)],
+            "start": sample_to_datetime(lo, sr).isoformat(),
+            "end": sample_to_datetime(hi, sr).isoformat(),
+            "dbfs_ref": ds.ref_dict[chan],
+            "entries": [e for e, (c, _) in ds.chan_entries.items() if c == chan],
+        }
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _config_from(args):
+    from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig
+
+    kw = dict(
+        nfft=args.nfft, nint=args.nint, ntime=args.ntime, mode=args.mode,
+        channel=args.channel, precision=getattr(args, "precision", "exact"),
+    )
+    if args.window:
+        kw["window"] = (
+            ("kaiser", args.kaiser_beta) if args.window == "kaiser"
+            else args.window
+        )
+    if args.crange:
+        kw["color_range_db"] = tuple(args.crange)
+    if args.frange:
+        kw["freq_window_khz"] = tuple(args.frange)
+    if args.tstart is not None or args.tend is not None:
+        kw["time_span"] = (args.tstart, args.tend)
+    if getattr(args, "hop", None):
+        kw["hop"] = args.hop
+    return SpectrogramConfig(**kw)
+
+
 def _open(dataset):
     """A dataset argument: a Digital RF directory, or an opened RFDataset."""
-    from pyspectrogram_tpu.io import RFDataset
+    from pyspectrogram_tpu_torch.io import RFDataset
 
     return dataset if isinstance(dataset, RFDataset) else RFDataset(dataset)
 
@@ -80,7 +117,7 @@ def _open(dataset):
 def _label(dataset) -> str:
     """A dataset argument as its JSON and file-name label: the path, or an
     opened dataset's first channel."""
-    from pyspectrogram_tpu.io import RFDataset
+    from pyspectrogram_tpu_torch.io import RFDataset
 
     return (dataset.channels[0] if isinstance(dataset, RFDataset)
             else str(dataset))
@@ -213,7 +250,7 @@ def cmd_psd(args) -> int:
 
 @_on_device
 def cmd_filter(args) -> int:
-    from pyspectrogram_tpu.io import DigitalRFWriter
+    from pyspectrogram_tpu_torch.io import DigitalRFWriter
     from pyspectrogram_tpu_torch.ops.filters import filter_signal, save_wav
 
     ds = _open(args.dataset)
@@ -244,8 +281,8 @@ def cmd_filter(args) -> int:
 def cmd_stream(args) -> int:
     """Incremental streaming: prefetch blocks from disk, push them through
     the STI ring on the device, save the final waterfall + median PSD."""
-    from pyspectrogram_tpu.io import sample_to_datetime
     from pyspectrogram_tpu_torch.display import save_sti_png
+    from pyspectrogram_tpu_torch.io import sample_to_datetime
     from pyspectrogram_tpu_torch.io.ingest import stream_blocks
     from pyspectrogram_tpu_torch.models.sti import to_device
     from pyspectrogram_tpu_torch.models.streaming import StreamingSti
@@ -396,6 +433,53 @@ def cmd_bench(args) -> int:
     print(json.dumps({"error": "the port has no bench yet: pstpu-torch "
                                "bench waits for it (ROADMAP Queue 1 item 5)"}))
     return 1
+
+
+#: synth --dtype choices: the float default plus the raw integer layouts
+#: real receivers record (int16 exercises the folded dBFS scale and the
+#: half-byte device transfers end-to-end)
+SYNTH_DTYPES = {
+    "complex64": np.complex64,
+    "int16": np.dtype([("r", np.int16), ("i", np.int16)]),
+    "float32": np.float32,
+}
+
+
+def cmd_synth(args) -> int:
+    from pyspectrogram_tpu_torch.io.synthetic import write_capture
+
+    meta = write_capture(
+        args.out, channel=args.channel or "ch0", kind=args.kind,
+        n_samples=args.n_samples,
+        sample_rate_numerator=args.sample_rate,
+        num_subchannels=args.nsub,
+        dtype=SYNTH_DTYPES[args.dtype],
+        freqs_hz=args.freqs if args.freqs else None,
+        noise_rms=args.noise_rms,
+    )
+    print(json.dumps(meta))
+    return 0
+
+
+def _add_common(p):
+    p.add_argument("--channel", default=None, help="chan or chan:sub")
+    p.add_argument("--subchannel", type=int, default=0)
+    p.add_argument("--nfft", type=int, default=1024)
+    p.add_argument("--nint", type=int, default=1)
+    p.add_argument("--ntime", type=int, default=100)
+    p.add_argument("--mode", choices=["welch", "parity"], default="welch")
+    p.add_argument("--precision",
+                   choices=["exact", "balanced", "display"],
+                   default="exact",
+                   help="DFT numerics: exact (~1e-5 dB), balanced "
+                        "(~7e-4 dB, faster), display (~0.12 dB, fastest)")
+    p.add_argument("--window", default="kaiser",
+                   choices=["kaiser", "hann", "hamming", "blackman", "boxcar"])
+    p.add_argument("--kaiser-beta", type=float, default=1.7)
+    p.add_argument("--crange", type=float, nargs=2, metavar=("MIN", "MAX"))
+    p.add_argument("--frange", type=float, nargs=2, metavar=("KHZ_MIN", "KHZ_MAX"))
+    p.add_argument("--tstart", type=float, help="start time (s since epoch)")
+    p.add_argument("--tend", type=float, help="end time (s since epoch)")
 
 
 def _add_device(p) -> None:

@@ -29,9 +29,9 @@ tracks the latest result instead of a never-updated maxtime=0
 All compute stays in the framework; the GUI only consumes
 ``ProcessorCallbacks`` payloads, re-marshalled onto the Qt main thread.
 The interactive entry point requires the optional [gui] extra
-(PyQt5 + matplotlib); without it the same classes run on the JAX
-package's headless widget kit (clients._qt_headless, jax-free like its
-Qt binding resolver), which is how the GUI is tested. The plots need
+(PyQt5 + matplotlib); without it the same classes run on the port's
+copy of the headless widget kit (clients._qt_headless, resolved by
+clients.qt_backend), which is how the GUI is tested. The plots need
 matplotlib (:func:`figure_kit`), unless the window is given
 :func:`recording_figure_kit`.
 """
@@ -41,7 +41,7 @@ from __future__ import annotations
 import sys
 from pathlib import Path
 
-from pyspectrogram_tpu.clients.qt_backend import (
+from pyspectrogram_tpu_torch.clients.qt_backend import (
     FigureCanvas,
     HEADLESS,
     NavigationToolbar2QT,
@@ -54,14 +54,6 @@ from pyspectrogram_tpu.clients.qt_backend import (
 
 import numpy as np
 
-from pyspectrogram_tpu.utils.config import (
-    MAX_PLOT_FREQS,
-    NFFT_RANGE,
-    NINT_RANGE,
-    NTIME_RANGE,
-    SpectrogramConfig,
-)
-from pyspectrogram_tpu.utils.errors import TerminateReason
 from pyspectrogram_tpu_torch.display import save_sti_png
 from pyspectrogram_tpu_torch.runtime import (
     Iterated,
@@ -71,6 +63,14 @@ from pyspectrogram_tpu_torch.runtime import (
     StatsUpdated,
     Terminated,
 )
+from pyspectrogram_tpu_torch.utils.config import (
+    MAX_PLOT_FREQS,
+    NFFT_RANGE,
+    NINT_RANGE,
+    NTIME_RANGE,
+    SpectrogramConfig,
+)
+from pyspectrogram_tpu_torch.utils.errors import TerminateReason
 
 SLIDER_STEPS = 10_000  # time sliders 0..10000 (reference: drfview.py:392-439)
 MAX_TABS = 7           # concurrent processors cap (reference: drfview.py:178)

@@ -1,8 +1,8 @@
 """Display of the port: the uint8 tiles and colour quantization on the
 device, the host LUT and the PNG, CSV and ``.npz`` writers — the names of
-the JAX package's ``display`` (colormap is its own, jax-free module)."""
+the JAX package's ``display`` (colormap is the port's copy of its module)."""
 
-from pyspectrogram_tpu.display.colormap import (
+from pyspectrogram_tpu_torch.display.colormap import (
     get_colormap,
     quantize_levels,
     rgba_lut,

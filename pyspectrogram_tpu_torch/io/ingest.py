@@ -46,9 +46,9 @@ def stream_blocks(ds, chan: str, start_sample: int, block_len: int,
     arrays, read and packed ``depth`` blocks ahead on a worker thread, for
     models.streaming.StreamingSti.push; the consumer copies each to its
     device (models.sti.to_device). The produce function is the JAX
-    feeder's (io/ingest.py:94-117)."""
-    from pyspectrogram_tpu.native import ingest as native_ingest
+    feeder's (io/ingest.py:94-117), on the port's own native ingest."""
     from pyspectrogram_tpu_torch.models.sti import _assemblable
+    from pyspectrogram_tpu_torch.native import ingest as native_ingest
 
     def produce(i: int) -> np.ndarray:
         s = start_sample + i * block_len

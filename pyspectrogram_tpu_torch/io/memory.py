@@ -16,7 +16,7 @@ from fractions import Fraction
 
 import numpy as np
 
-from pyspectrogram_tpu.io.reader import RFDataset
+from pyspectrogram_tpu_torch.io.reader import RFDataset
 
 
 class MemoryReader:

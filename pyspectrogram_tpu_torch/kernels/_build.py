@@ -116,9 +116,11 @@ def library() -> ctypes.CDLL:
         lib.pst_big_psd.argtypes = psd_args
         lib.pst_stream_psd.argtypes = [vp, i64, i32, i32, i32, i32, i32, vp,
                                        vp, ctypes.c_float, vp, vp, vp]
-        lib.pst_median.argtypes = [vp, i32, i32, i64, vp, vp]
+        lib.pst_median_tile.argtypes = [vp, i32, i32, i64, vp, vp]
+        lib.pst_median_radix.argtypes = [vp, i32, i32, i64, i32, i32, vp, vp,
+                                         vp, vp, vp, vp]
         for fn in (lib.pst_sti_psd, lib.pst_big_psd, lib.pst_stream_psd,
-                   lib.pst_median):
+                   lib.pst_median_tile, lib.pst_median_radix):
             fn.restype = i32
         _LIB = lib
         return _LIB

@@ -26,14 +26,16 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from pyspectrogram_tpu.io.time_util import samples_to_datetime64, time_to_sample
-from pyspectrogram_tpu.utils.config import resolve_time_span
 from pyspectrogram_tpu_torch.display.tile import (
     make_tile_spec,
     quantize_tile_linear,
     tile_freqs,
 )
 from pyspectrogram_tpu_torch.io.ingest import prefetch
+from pyspectrogram_tpu_torch.io.time_util import (
+    samples_to_datetime64,
+    time_to_sample,
+)
 from pyspectrogram_tpu_torch.models.sti import (
     StiResult,
     assemble_device_block,
@@ -43,6 +45,7 @@ from pyspectrogram_tpu_torch.models.sti import (
 from pyspectrogram_tpu_torch.ops import stft
 from pyspectrogram_tpu_torch.ops.plain import to_dbfs
 from pyspectrogram_tpu_torch.ops.windows import WindowSpec
+from pyspectrogram_tpu_torch.utils.config import resolve_time_span
 
 #: batches of at least this many sample bytes assemble request by request
 #: through the prefetch worker, each block copied into its column range of

@@ -10,8 +10,8 @@ mesh tiers.
           dB or the uint8 display tile (ops.stft.make_sti_fn_pm)
   host:   per-column datetimes, fftshifted freqs, reference-layout views
 
-The host helpers are numpy copies of the JAX package's (importing
-pyspectrogram_tpu.models.sti loads jax); tests pin them to the originals.
+The host helpers are numpy copies of the JAX package's models/sti.py (the
+port imports nothing of that package); tests pin them to the originals.
 """
 
 from __future__ import annotations
@@ -23,13 +23,19 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from pyspectrogram_tpu.io.reader import RFDataset
-from pyspectrogram_tpu.io.time_util import samples_to_datetime64, time_to_sample
-from pyspectrogram_tpu.native import ingest
-from pyspectrogram_tpu.utils.config import SpectrogramConfig, resolve_time_span
 from pyspectrogram_tpu_torch.display.tile import make_tile_spec, tile_freqs
 from pyspectrogram_tpu_torch.io.ingest import prefetch
+from pyspectrogram_tpu_torch.io.reader import RFDataset
+from pyspectrogram_tpu_torch.io.time_util import (
+    samples_to_datetime64,
+    time_to_sample,
+)
+from pyspectrogram_tpu_torch.native import ingest
 from pyspectrogram_tpu_torch.ops import stft
+from pyspectrogram_tpu_torch.utils.config import (
+    SpectrogramConfig,
+    resolve_time_span,
+)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -29,8 +29,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from pyspectrogram_tpu.utils.config import SpectrogramConfig
 from pyspectrogram_tpu_torch.models.streaming import StreamState
+from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig
 
 # v2: stream-state headers record ring_layout ("rotated": storage is
 # rolled so the oldest column sits at total_cols % ring_len — the layout

@@ -26,20 +26,24 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from pyspectrogram_tpu.io.reader import RFDataset
-from pyspectrogram_tpu.io.time_util import samples_to_datetime64
-from pyspectrogram_tpu.native import ingest as native_ingest
-from pyspectrogram_tpu.utils.config import SpectrogramConfig
 from pyspectrogram_tpu_torch.display.tile import (
     make_tile_spec,
     quantize_tile_linear,
     tile_freqs,
 )
-from pyspectrogram_tpu_torch.models.sti import StiResult, _assemblable, to_device
+from pyspectrogram_tpu_torch.io.reader import RFDataset
+from pyspectrogram_tpu_torch.io.time_util import samples_to_datetime64
+from pyspectrogram_tpu_torch.models.sti import (
+    StiResult,
+    _assemblable,
+    to_device,
+)
 from pyspectrogram_tpu_torch.models.streaming import StreamingSti
+from pyspectrogram_tpu_torch.native import ingest as native_ingest
 from pyspectrogram_tpu_torch.ops import stft
 from pyspectrogram_tpu_torch.ops.plain import to_dbfs
 from pyspectrogram_tpu_torch.runtime import checkpoint
+from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig
 
 #: per-push block target (samples): big enough to amortize the launches,
 #: small enough that new data surfaces within a refresh tick (~0.07 s of

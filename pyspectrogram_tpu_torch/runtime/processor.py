@@ -36,10 +36,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from pyspectrogram_tpu.io.reader import RFDataset
-from pyspectrogram_tpu.utils.config import SpectrogramConfig, resolve_time_span
-from pyspectrogram_tpu.utils.errors import TerminateReason
-from pyspectrogram_tpu.utils.log import get_logger, log_event
+from pyspectrogram_tpu_torch.io.reader import RFDataset
 from pyspectrogram_tpu_torch.models.sti import StiPipeline, check_device
 from pyspectrogram_tpu_torch.runtime.live import LiveStreamEngine, _EngineSlot
 from pyspectrogram_tpu_torch.runtime.signals import (
@@ -48,6 +45,12 @@ from pyspectrogram_tpu_torch.runtime.signals import (
     StatsUpdated,
     Terminated,
 )
+from pyspectrogram_tpu_torch.utils.config import (
+    SpectrogramConfig,
+    resolve_time_span,
+)
+from pyspectrogram_tpu_torch.utils.errors import TerminateReason
+from pyspectrogram_tpu_torch.utils.log import get_logger, log_event
 
 logger = get_logger("pstpu.processor")
 

@@ -30,9 +30,9 @@ import time
 import traceback
 from typing import List, Optional
 
-from pyspectrogram_tpu.utils.errors import TerminateReason
-from pyspectrogram_tpu.utils.log import get_logger, log_event
 from pyspectrogram_tpu_torch.models import batch
+from pyspectrogram_tpu_torch.utils.errors import TerminateReason
+from pyspectrogram_tpu_torch.utils.log import get_logger, log_event
 
 logger = get_logger("pstpu.scheduler")
 

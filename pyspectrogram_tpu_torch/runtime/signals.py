@@ -17,7 +17,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 
-from pyspectrogram_tpu.utils.errors import TerminateReason
+from pyspectrogram_tpu_torch.utils.errors import TerminateReason
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,7 +6,9 @@ Times, frame starts, masks and plot axes must be exact. Spectra: dB within
 each column's peak; linear power at rtol 2e-4, atol 1e-6. uint8 tiles are
 bit-equal to the eager JAX quantize of the same linear power, and within
 one level on <= 0.1% of pixels against the jitted JAX launch (two float32
-FFTs land on either side of a level boundary there).
+FFTs land on either side of a level boundary there). The port reads the
+captures with its own reader and config; the JAX side gets its own
+(port_pairs).
 """
 
 import numpy as np
@@ -15,16 +17,17 @@ import torch
 
 import jax.numpy as jnp
 
+from port_pairs import jax_config, jax_requests, jax_spec
 from pyspectrogram_tpu.display.tile import (
-    make_tile_spec,
     quantize_tile_linear as jquantize_tile_linear,
 )
-from pyspectrogram_tpu.io.reader import RFDataset
 from pyspectrogram_tpu.models import batch as jbatch
-from pyspectrogram_tpu.utils.config import SpectrogramConfig
+from pyspectrogram_tpu_torch.display.tile import make_tile_spec
+from pyspectrogram_tpu_torch.io.reader import RFDataset
 from pyspectrogram_tpu_torch.kernels import median_cuda
 from pyspectrogram_tpu_torch.models import batch, sti
 from pyspectrogram_tpu_torch.ops import plain, stft
+from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig
 
 
 def _db_close(got, want, floor_db, axis=-1, atol=1e-4):
@@ -82,7 +85,7 @@ def test_batched_fn_matches_jax(ntime, tile):
                                       max_nfreqs=nfft // 4).qparams
                        for cr in ((-40.0, 10.0), (-130.0, -80.0),
                                   (-35.0, 0.0))])
-    want = jbatch.make_batched_sti_fn_pm(tile=spec, **kw)(
+    want = jbatch.make_batched_sti_fn_pm(tile=jax_spec(spec), **kw)(
         *((jnp.asarray(merged), jnp.asarray(inv))
           + ((qp,) if tile else ())))
     got = batch.make_batched_sti_fn_pm(tile=spec, **kw)(
@@ -105,8 +108,8 @@ def test_batched_fn_matches_jax(ntime, tile):
     p = (p * torch.from_numpy(inv)[:, None, None, None]).numpy()
     for b in range(B):
         np.testing.assert_array_equal(
-            g[b], np.asarray(jquantize_tile_linear(jnp.asarray(p[b]), spec,
-                                                   1e-15, qp[b])))
+            g[b], np.asarray(jquantize_tile_linear(
+                jnp.asarray(p[b]), jax_spec(spec), 1e-15, qp[b])))
 
 
 def test_batched_fn_rejects_wrong_length():
@@ -143,7 +146,8 @@ def test_batched_pipeline_matches_jax(tone_capture, int16_capture,
     (with the threshold lowered) the prefetch branch."""
     reqs = _requests(tone_capture, int16_capture)
     cfg = SpectrogramConfig(nfft=256, nint=2, ntime=ntime)
-    want = jbatch.BatchedStiPipeline(reqs, cfg).compute()
+    want = jbatch.BatchedStiPipeline(jax_requests(reqs),
+                                     jax_config(cfg)).compute()
     if prefetch:
         monkeypatch.setattr(batch, "BATCH_PREFETCH_MIN_BYTES", 1)
     got = batch.BatchedStiPipeline(reqs, cfg, device="cpu").compute()
@@ -175,7 +179,8 @@ def test_batched_tile_pipeline_matches_jax(tone_capture, int16_capture,
     reqs = _requests(tone_capture, int16_capture)
     cfg = SpectrogramConfig(nfft=256, nint=1, ntime=ntime, display_tile=True)
     cranges = [(-110.0, -40.0), (-95.0, -25.0), (-60.0, 0.0)]
-    want = jbatch.BatchedStiPipeline(reqs, cfg).compute(color_ranges=cranges)
+    want = jbatch.BatchedStiPipeline(jax_requests(reqs), jax_config(cfg)) \
+        .compute(color_ranges=cranges)
     got = batch.BatchedStiPipeline(reqs, cfg, device="cpu").compute(
         color_ranges=cranges)
     _check_axes(got, want)
@@ -207,7 +212,8 @@ def test_refuses_mixed_subchannel_counts(tone_capture, int16_capture):
     reqs = [(RFDataset(tone_capture[0]), None),
             (RFDataset(int16_capture[0]), None)]     # nsub 2 and 1
     cfg = SpectrogramConfig(nfft=256, ntime=8)
-    for make in (lambda: jbatch.BatchedStiPipeline(reqs, cfg),
+    for make in (lambda: jbatch.BatchedStiPipeline(jax_requests(reqs),
+                                                   jax_config(cfg)),
                  lambda: batch.BatchedStiPipeline(reqs, cfg, device="cpu")):
         with pytest.raises(ValueError, match="subchannel"):
             make().compute()
@@ -219,7 +225,8 @@ def test_refuses_differing_crop_plans(tone_capture, int16_capture):
     reqs = _requests(tone_capture, int16_capture)
     cfg = SpectrogramConfig(nfft=256, ntime=8, display_tile=True,
                             freq_window_khz=(-20.0, 20.0))
-    for make in (lambda: jbatch.BatchedStiPipeline(reqs, cfg),
+    for make in (lambda: jbatch.BatchedStiPipeline(jax_requests(reqs),
+                                                   jax_config(cfg)),
                  lambda: batch.BatchedStiPipeline(reqs, cfg, device="cpu")):
         with pytest.raises(ValueError, match="crop plan"):
             make().compute()
@@ -231,7 +238,8 @@ def test_empty_window_falls_back_to_float(tone_capture, int16_capture):
     reqs = _requests(tone_capture, int16_capture)
     cfg = SpectrogramConfig(nfft=256, ntime=8, display_tile=True,
                             freq_window_khz=(-1e5, -9e4))
-    want = jbatch.BatchedStiPipeline(reqs, cfg).compute()
+    want = jbatch.BatchedStiPipeline(jax_requests(reqs),
+                                     jax_config(cfg)).compute()
     got = batch.BatchedStiPipeline(reqs, cfg, device="cpu").compute()
     _check_axes(got, want)
     for g, w in zip(got, want):

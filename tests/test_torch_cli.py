@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from pyspectrogram_tpu.clients import cli as jcli
-from pyspectrogram_tpu.io import RFDataset
 from pyspectrogram_tpu_torch.clients import cli
+from pyspectrogram_tpu_torch.io import RFDataset
 from pyspectrogram_tpu_torch.io.memory import MemoryDataset
 
 DEV = ("--device", "cpu")

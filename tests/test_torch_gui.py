@@ -5,7 +5,10 @@ compute-bearing flows of tests/test_gui.py.
 Each flow drives both windows the same way and holds the port tab's last
 payload against the JAX tab's: times, frequency axes and masks equal; dB
 within 1e-4 dB on bins within 60 dB of each column's peak; uint8 tiles
-within one level on <= 0.1% of pixels (ROADMAP Queue 3).
+within one level on <= 0.1% of pixels (ROADMAP Queue 3). Each window runs
+on its own package's headless widget kit, so each kit gets the canned
+dialog answers; the captures are written by the JAX package's writer and
+read by each package's own reader.
 """
 
 import time
@@ -13,32 +16,32 @@ import time
 import numpy as np
 import pytest
 
+from pyspectrogram_tpu.clients import _qt_headless as jkit
 from pyspectrogram_tpu.clients import gui as jgui
-from pyspectrogram_tpu.clients._qt_headless import (
-    QFileDialog,
-    QInputDialog,
-    QMessageBox,
-)
-from pyspectrogram_tpu.io import RFDataset
 from pyspectrogram_tpu.io.synthetic import tone_signal
 from pyspectrogram_tpu.io.writer import DigitalRFWriter
+from pyspectrogram_tpu_torch.clients import _qt_headless as kit
 from pyspectrogram_tpu_torch.clients import gui
+from pyspectrogram_tpu_torch.io import RFDataset
 
 SR = 100_000
+#: the widget kits of the port's window and the JAX window
+KITS = (kit, jkit)
 
 
 @pytest.fixture(autouse=True)
 def _dialog_state(tmp_path, monkeypatch):
     """Reset the headless kit's canned dialog answers and keep the
     last-used directory inside the test's tmp dir, for both windows."""
-    QMessageBox.journal = []
-    QMessageBox.answer = QMessageBox.Yes
-    QFileDialog.existing_directory = ""
-    QFileDialog.save_file_name = ("", "")
-    QFileDialog.save_file_queue = []
-    QFileDialog.open_file_name = ("", "")
-    QInputDialog.double_answer = (0.0, False)
-    QInputDialog.text_answer = ("", False)
+    for k in KITS:
+        k.QMessageBox.journal = []
+        k.QMessageBox.answer = k.QMessageBox.Yes
+        k.QFileDialog.existing_directory = ""
+        k.QFileDialog.save_file_name = ("", "")
+        k.QFileDialog.save_file_queue = []
+        k.QFileDialog.open_file_name = ("", "")
+        k.QInputDialog.double_answer = (0.0, False)
+        k.QInputDialog.text_answer = ("", False)
     for mod in (gui, jgui):
         monkeypatch.setattr(mod.MainWindow, "_last_dir_file",
                             lambda self: tmp_path / "last_dir.txt")
@@ -66,7 +69,8 @@ def _start(win, top, tab_id=1, **widgets):
     st = win.states[tab_id]
     for name, v in widgets.items():
         getattr(st, name).setValue(v)
-    QFileDialog.existing_directory = str(top)
+    for k in KITS:
+        k.QFileDialog.existing_directory = str(top)
     st.start_btn.click()
     return st
 
@@ -180,16 +184,17 @@ def test_save_subtab_artifacts_match_jax(tone_capture, tmp_path):
     # windows the JAX function's; only the port's window writes one
     sts[1].save_spectro.click()
     outs = {}
-    for tag, st in zip(("port", "jax"), sts):
+    for tag, st, k in zip(("port", "jax"), sts, KITS):
         outs[tag] = [tmp_path / f"{tag}.{ext}" for ext in ("png", "npz",
                                                           "csv")]
-        QFileDialog.save_file_queue = [(str(p), "") for p in outs[tag]
-                                       if tag == "port" or p.suffix != ".png"]
+        k.QFileDialog.save_file_queue = [
+            (str(p), "") for p in outs[tag]
+            if tag == "port" or p.suffix != ".png"]
         st.save_btn.click()
         st.save_thread.join(120)
         assert _wait(lambda: st.save_btn.isEnabled())
         assert st.save_btn.text() == "Save File(s)…"
-    assert QMessageBox.journal == []
+    assert all(k.QMessageBox.journal == [] for k in KITS)
     (ppng, pnpz, pcsv), (jpng, jnpz, jcsv) = outs["port"], outs["jax"]
     assert ppng.stat().st_size > 1000 and not jpng.exists()
     a, b = np.load(pnpz), np.load(jnpz)
@@ -247,8 +252,8 @@ def test_live_state_resume_crosses_packages(tmp_path):
     a state the JAX window saved resumes in the port's too."""
     _live_capture(tmp_path / "cap")
     states = []
-    for tag, win in (("port", gui.MainWindow(device="cpu")),
-                     ("jax", jgui.MainWindow())):
+    for tag, win, k in (("port", gui.MainWindow(device="cpu"), kit),
+                        ("jax", jgui.MainWindow(), jkit)):
         st = win.states[1]
         st.live_check.setChecked(True)
         st.window_s.setValue(0.1)
@@ -260,7 +265,7 @@ def test_live_state_resume_crosses_packages(tmp_path):
         st.save_spectro.setChecked(False)
         st.save_state.setChecked(True)
         ck = tmp_path / f"{tag}_state.npz"
-        QFileDialog.save_file_queue = [(str(ck), "")]
+        k.QFileDialog.save_file_queue = [(str(ck), "")]
         st.save_btn.click()
         st.save_thread.join(60)
         assert _wait(lambda: st.save_btn.isEnabled()) and ck.exists()
@@ -269,8 +274,8 @@ def test_live_state_resume_crosses_packages(tmp_path):
     for ck, next_sample in states:
         win = gui.MainWindow(device="cpu")
         st = win.states[1]
-        QFileDialog.open_file_name = (str(ck), "")
-        QFileDialog.existing_directory = str(tmp_path / "cap")
+        kit.QFileDialog.open_file_name = (str(ck), "")
+        kit.QFileDialog.existing_directory = str(tmp_path / "cap")
         st.resume_btn.click()
         assert st.processor is not None and st.processor.config.streaming
         assert st.nfft.value() == 256 and st.hop_w.value() == 128
@@ -294,7 +299,7 @@ def test_tab_and_thread_caps_match_jax(tone_capture):
     for _ in range(gui.MAX_TABS):
         menu.actions[0].trigger()
     assert win.tabs.count() == gui.MAX_TABS
-    assert QMessageBox.journal[-1][2] == "Maximum number of tabs reached."
+    assert kit.QMessageBox.journal[-1][2] == "Maximum number of tabs reached."
     for t in win.states:
         _start(win, top, tab_id=t, nfft=256, ntime=100)
     assert all(s.processor.is_running for s in win.states.values())
@@ -307,11 +312,11 @@ def test_tab_and_thread_caps_match_jax(tone_capture):
     st1.processor.abort()
     assert sum(s.processor.is_running
                for s in win.states.values()) == gui.MAX_TABS - 1
-    n_warn = len(QMessageBox.journal)
+    n_warn = len(kit.QMessageBox.journal)
     win.start_processor(1)
-    assert st1.processor.is_running and len(QMessageBox.journal) == n_warn
+    assert st1.processor.is_running and len(kit.QMessageBox.journal) == n_warn
     win.start_processor(1)
-    assert QMessageBox.journal[-1][2] == "All processing threads are busy."
+    assert kit.QMessageBox.journal[-1][2] == "All processing threads are busy."
     for s in win.states.values():
         s.processor.abort()
     assert win.close()

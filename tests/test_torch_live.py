@@ -6,7 +6,8 @@ bins within 60 dB of the column's peak (tone captures; the rest is float32
 FFT rounding of a floor far below the tone); uint8 tiles within one level
 on <= 0.1% of pixels (two FFTs' linear power lands on either side of a
 level boundary there). Checkpoints written by either package resume in
-the other.
+the other. Each package opens the captures with its own reader and gets its
+own config (port_pairs).
 """
 
 import json
@@ -15,16 +16,17 @@ import numpy as np
 import pytest
 import torch
 
-from pyspectrogram_tpu.io.reader import RFDataset
+from port_pairs import jax_config, jax_dataset
 from pyspectrogram_tpu.io.synthetic import tone_signal, write_capture
 from pyspectrogram_tpu.io.writer import DigitalRFWriter
 from pyspectrogram_tpu.runtime import checkpoint as jcheckpoint
 from pyspectrogram_tpu.runtime.live import LiveStreamEngine as JEngine
-from pyspectrogram_tpu.utils.config import SpectrogramConfig
 from pyspectrogram_tpu_torch.io.memory import MemoryDataset
+from pyspectrogram_tpu_torch.io.reader import RFDataset
 from pyspectrogram_tpu_torch.models.streaming import StreamState
 from pyspectrogram_tpu_torch.runtime import LiveStreamEngine, checkpoint
 from pyspectrogram_tpu_torch.runtime.live import _EngineSlot
+from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig
 
 SR = 100_000
 START = 1_451_661_840 * SR
@@ -91,7 +93,10 @@ def _same_result(got, want):
 
 
 def _engines(ds, cfg, **kw):
-    return LiveStreamEngine(ds, cfg, "cpu", **kw), JEngine(ds, cfg, **kw)
+    """The port's engine on ``ds`` and the JAX engine on the same capture
+    through its own reader (``jeng.ds``)."""
+    return (LiveStreamEngine(ds, cfg, "cpu", **kw),
+            JEngine(jax_dataset(ds), jax_config(cfg), **kw))
 
 
 def _check_engines(a, b):
@@ -118,7 +123,7 @@ def test_tick_matches_jax_on_tone_capture(tone_capture, cfg_kw):
     cfg = SpectrogramConfig(streaming=True, **cfg_kw)
     eng, jeng = _engines(ds, cfg)
     for _ in range(2):                  # a cold tick, then an idle one
-        _same_result(eng.tick(cfg), jeng.tick(cfg))
+        _same_result(eng.tick(cfg), jeng.tick(jax_config(cfg)))
         _check_engines(eng, jeng)
     res = eng.tick(cfg)
     lo, hi = ds.bnds[meta["channel"]]
@@ -146,7 +151,7 @@ def test_overlap_hop_matches_jax(tone_capture, nfft, nint, hop):
     eng, jeng = _engines(ds, cfg)
     assert eng.hop == hop and eng.carry_len == nfft * nint - hop
     res = eng.tick(cfg)
-    _same_result(res, jeng.tick(cfg))
+    _same_result(res, jeng.tick(jax_config(cfg)))
     _check_engines(eng, jeng)
     assert np.all(np.diff(res.frame_starts) == hop)
     np.testing.assert_array_equal(eng.state.carry.numpy(),
@@ -156,20 +161,21 @@ def test_overlap_hop_matches_jax(tone_capture, nfft, nint, hop):
 def test_tick_reads_are_o_delta_and_match_jax(tmp_path):
     n0 = 60_000
     w = _growing_writer(tmp_path, n0)
-    ds, jds = RFDataset(tmp_path), RFDataset(tmp_path)
+    ds = RFDataset(tmp_path)
+    jds = jax_dataset(ds)
     cfg = SpectrogramConfig(nfft=64, ntime=16, stream_seconds=0.5,
                             streaming=True)
     eng = LiveStreamEngine(ds, cfg, "cpu", target_block_samples=4096)
-    jeng = JEngine(jds, cfg, target_block_samples=4096)
+    jeng = JEngine(jds, jax_config(cfg), target_block_samples=4096)
     spans = _count_reads(ds)
     window_samples = eng.window_cols * eng.hop
     assert window_samples == 50_048
-    _same_result(eng.tick(cfg), jeng.tick(cfg))
+    _same_result(eng.tick(cfg), jeng.tick(jax_config(cfg)))
     assert sum(spans) <= window_samples + eng.block_len
     for _ in range(3):
         n0 = _append(w, (ds, jds), n0, 7_000)
         before = sum(spans)
-        _same_result(eng.tick(cfg), jeng.tick(cfg))
+        _same_result(eng.tick(cfg), jeng.tick(jax_config(cfg)))
         read = sum(spans) - before
         assert read <= 7_000 + eng.block_len and read < window_samples / 4
         _check_engines(eng, jeng)
@@ -182,12 +188,12 @@ def test_backlog_skip_matches_jax(tmp_path):
     cfg = SpectrogramConfig(nfft=64, ntime=8, stream_seconds=0.1,
                             streaming=True)
     eng, jeng = _engines(ds, cfg, target_block_samples=4096)
-    _same_result(eng.tick(cfg), jeng.tick(cfg))
+    _same_result(eng.tick(cfg), jeng.tick(jax_config(cfg)))
     spans = _count_reads(ds)
-    _append(w, (ds,), n0, 5 * eng.window_cols * eng.hop)
+    _append(w, (ds, jeng.ds), n0, 5 * eng.window_cols * eng.hop)
     res = eng.tick(cfg)
     assert sum(spans) <= eng.window_cols * eng.hop + eng.block_len
-    _same_result(res, jeng.tick(cfg))
+    _same_result(res, jeng.tick(jax_config(cfg)))
     _check_engines(eng, jeng)
     lo, hi = ds.bnds["live"]
     assert hi + 1 - (res.frame_starts[-1] + 64) < eng.block_len
@@ -203,7 +209,7 @@ def test_gap_columns_flagged_as_jax(tmp_path):
                             streaming=True)
     eng, jeng = _engines(ds, cfg, target_block_samples=4096)
     res = eng.tick(cfg)
-    _same_result(res, jeng.tick(cfg))
+    _same_result(res, jeng.tick(jax_config(cfg)))
     assert (~res.mask).any() and res.mask.any()
     hole_lo, hole_hi = START + n0, START + n0 + gap
     np.testing.assert_array_equal(
@@ -219,7 +225,7 @@ def test_overlap_gap_flags_touching_columns(tmp_path):
                             stream_seconds=0.1, hop=64, streaming=True)
     eng, jeng = _engines(ds, cfg)
     res = eng.tick(cfg)
-    _same_result(res, jeng.tick(cfg))
+    _same_result(res, jeng.tick(jax_config(cfg)))
     lo, _ = ds.bnds["g"]
     want_bad = ((res.frame_starts < lo + 15_300)
                 & (res.frame_starts + 128 > lo + 15_000))
@@ -234,10 +240,10 @@ def test_ring_wrap_long_run_matches_jax(tmp_path):
     cfg = SpectrogramConfig(nfft=64, ntime=64, stream_seconds=0.04,
                             streaming=True)
     eng, jeng = _engines(ds, cfg, target_block_samples=2048)
-    _same_result(eng.tick(cfg), jeng.tick(cfg))
+    _same_result(eng.tick(cfg), jeng.tick(jax_config(cfg)))
     for _ in range(6):
-        n0 = _append(w, (ds,), n0, 3_200)
-        _same_result(eng.tick(cfg), jeng.tick(cfg))
+        n0 = _append(w, (ds, jeng.ds), n0, 3_200)
+        _same_result(eng.tick(cfg), jeng.tick(jax_config(cfg)))
     assert eng.total_cols > 4 * eng.sti.ring_len
     _check_engines(eng, jeng)
 
@@ -253,18 +259,19 @@ def test_tail_columns_match_jax(tmp_path, display_tile):
                             streaming=True, display_tile=display_tile)
     eng, jeng = _engines(ds, cfg, target_block_samples=4096)
     assert eng.cols_per_block == 64
-    _same_result(eng.tick(cfg), jeng.tick(cfg))
-    n0 = _append(w, (ds,), n0, 37 * 64)          # < 1 block pending
+    _same_result(eng.tick(cfg), jeng.tick(jax_config(cfg)))
+    n0 = _append(w, (ds, jeng.ds), n0, 37 * 64)    # < 1 block pending
     res1 = eng.tick(cfg)
-    _same_result(res1, jeng.tick(cfg))
+    _same_result(res1, jeng.tick(jax_config(cfg)))
     assert eng._tail_pending == 37 and len(res1.frame_starts) == 128 + 37
     reads = eng.tail_samples_read
     res2 = eng.tick(cfg)                         # idle: cached tail
-    _same_result(res2, jeng.tick(cfg))
+    _same_result(res2, jeng.tick(jax_config(cfg)))
     assert eng.tail_samples_read == reads
-    n0 = _append(w, (ds,), n0, (64 - 37 + 64 + 13) * 64)   # block + tail
+    # a block and a tail
+    n0 = _append(w, (ds, jeng.ds), n0, (64 - 37 + 64 + 13) * 64)
     res3 = eng.tick(cfg)
-    _same_result(res3, jeng.tick(cfg))
+    _same_result(res3, jeng.tick(jax_config(cfg)))
     assert eng._tail_pending == 13
     _check_engines(eng, jeng)
     lo, hi = ds.bnds["live"]
@@ -281,7 +288,7 @@ def test_overlap_hop_short_capture_still_displays(tmp_path):
     assert eng.carry_len + eng.cols_per_block * eng.hop <= 1_100
     res = eng.tick(cfg)
     assert res is not None
-    _same_result(res, jeng.tick(cfg))
+    _same_result(res, jeng.tick(jax_config(cfg)))
     assert np.all(np.diff(res.frame_starts) == 16)
 
 
@@ -297,7 +304,7 @@ def test_int16_capture_normalization(tmp_path):
                                 hop=hop, streaming=True)
         eng, jeng = _engines(ds, cfg)
         res = eng.tick(cfg)
-        _same_result(res, jeng.tick(cfg))
+        _same_result(res, jeng.tick(jax_config(cfg)))
         np.testing.assert_allclose(float(res.sxx_med_dbfs.max()),
                                    20 * np.log10(2**14 / 2**15.5), atol=0.05)
 
@@ -331,20 +338,20 @@ def test_checkpoints_cross_load(tmp_path, hop):
                             streaming=True)
     ds = RFDataset(cap)
     eng, jeng = _engines(ds, cfg, target_block_samples=2048)
-    _same_result(eng.tick(cfg), jeng.tick(cfg))
+    _same_result(eng.tick(cfg), jeng.tick(jax_config(cfg)))
     ck = eng.save(tmp_path / "port.ckpt")
     jck = jeng.save(tmp_path / "jax.ckpt")
     assert ck.suffix == jck.suffix == ".npz"
     assert checkpoint.peek_stream_meta(jck) == jcheckpoint.peek_stream_meta(ck)
 
-    _append(w, (ds,), n0, 9_000)
-    from_port = JEngine.resume(RFDataset(cap), cfg, ck)
+    _append(w, (ds, jeng.ds), n0, 9_000)
+    from_port = JEngine.resume(jax_dataset(ds), jax_config(cfg), ck)
     ds_p = RFDataset(cap)
     from_jax = LiveStreamEngine.resume(ds_p, cfg, jck, "cpu")
     assert from_jax.total_cols == eng.total_cols
     assert from_jax.next_sample == from_port.next_sample == eng.next_sample
     spans = _count_reads(ds_p)
-    want, jwant = eng.tick(cfg), jeng.tick(cfg)
+    want, jwant = eng.tick(cfg), jeng.tick(jax_config(cfg))
     got_j, got_p = from_port.tick(cfg), from_jax.tick(cfg)
     assert sum(spans) <= 9_000 + eng.block_len
     for got in (got_j, got_p):
@@ -413,7 +420,7 @@ def test_resume_refusals_match_jax(tmp_path):
         with pytest.raises((KeyError, ValueError), match=match or None):
             LiveStreamEngine.resume(d, c, p, "cpu")
         with pytest.raises((KeyError, ValueError), match=match or None):
-            JEngine.resume(d, c, p)
+            JEngine.resume(jax_dataset(d), jax_config(c), p)
 
 
 def test_resume_accepts_pre_hop_checkpoint(tmp_path):
@@ -427,7 +434,8 @@ def test_resume_accepts_pre_hop_checkpoint(tmp_path):
     eng2 = LiveStreamEngine.resume(ds, cfg, old, "cpu")
     assert eng2.hop == 64 and eng2.carry_len == 0
     assert eng2.next_sample == eng.next_sample
-    assert JEngine.resume(ds, cfg, old).next_sample == eng.next_sample
+    assert JEngine.resume(jax_dataset(ds), jax_config(cfg),
+                          old).next_sample == eng.next_sample
 
 
 def test_stream_state_format_refusals_match_jax(tmp_path):
@@ -502,13 +510,15 @@ def test_session_files_cross_load(tmp_path):
     cfg = SpectrogramConfig(nfft=512, nint=2, window="hann",
                             time_span=(1.0, None), hop=128,
                             freq_window_khz=(-10.0, 10.0))
-    for save, load in ((checkpoint.save_session, jcheckpoint.load_session),
-                       (jcheckpoint.save_session, checkpoint.load_session)):
-        p = save(tmp_path / "sess.ckpt", tmp_path, cfg, (5, 99),
+    jcfg = jax_config(cfg)
+    for save, load, saved, loaded in (
+            (checkpoint.save_session, jcheckpoint.load_session, cfg, jcfg),
+            (jcheckpoint.save_session, checkpoint.load_session, jcfg, cfg)):
+        p = save(tmp_path / "sess.ckpt", tmp_path, saved, (5, 99),
                  extra={"tab": 2})
         assert p.name == "sess.ckpt.npz"
         h = load(tmp_path / "sess.ckpt")
-        assert h["config"] == cfg and h["sample_bounds"] == (5, 99)
+        assert h["config"] == loaded and h["sample_bounds"] == (5, 99)
         assert h["extra"] == {"tab": 2}
 
 

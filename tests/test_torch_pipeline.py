@@ -1,5 +1,6 @@
 """The PyTorch port's StiPipeline (CPU) against the JAX package's on the
-same Digital RF captures."""
+same Digital RF captures, each package reading them with its own reader
+and config (port_pairs)."""
 
 import subprocess
 import sys
@@ -10,11 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from pyspectrogram_tpu.io import RFDataset
+from port_pairs import jax_config, jax_dataset
 from pyspectrogram_tpu.models import sti as jsti
-from pyspectrogram_tpu.utils.config import SpectrogramConfig
+from pyspectrogram_tpu_torch.io import RFDataset
 from pyspectrogram_tpu_torch.io.memory import MemoryDataset
 from pyspectrogram_tpu_torch.models import sti
+from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig
 
 REPO = Path(__file__).resolve().parents[1]
 LIN = dict(rtol=2e-4, atol=1e-6)
@@ -49,7 +51,7 @@ def test_compute_matches_jax(request, monkeypatch, capture, cfg_kw,
     if prefetch:
         monkeypatch.setattr(sti, "PREFETCH_MIN_BYTES", 0)
     got = sti.StiPipeline(ds, cfg, device="cpu").compute()
-    want = jsti.StiPipeline(ds, cfg).compute()
+    want = jsti.StiPipeline(jax_dataset(ds), jax_config(cfg)).compute()
     assert got.iteration == want.iteration == 0
     np.testing.assert_array_equal(got.times, want.times)
     np.testing.assert_array_equal(got.freqs, want.freqs)
@@ -79,9 +81,12 @@ def test_compute_peak_and_request_key(tone_capture):
     ds = RFDataset(top)
     cfg = SpectrogramConfig(nfft=512, nint=2, ntime=40)
     pipe = sti.StiPipeline(ds, cfg, device="cpu")
-    jpipe = jsti.StiPipeline(ds, cfg)
-    assert pipe.request_key(cfg) == jpipe.request_key(cfg)
-    assert pipe.channel_of(cfg) == jpipe.channel_of(cfg)
+    jcfg = jax_config(cfg)
+    jpipe = jsti.StiPipeline(jax_dataset(ds), jcfg)
+    # the key leads with its package's config; the rest is plain data
+    key, jkey = pipe.request_key(cfg), jpipe.request_key(jcfg)
+    assert jax_config(key[0]) == jkey[0] and key[1:] == jkey[1:]
+    assert pipe.channel_of(cfg) == jpipe.channel_of(jcfg)
     lo, _ = ds.bnds[ds.channels[0]]
     r0, r1 = pipe.compute(), pipe.compute(sample_span=(lo, lo + 40_000))
     np.testing.assert_array_equal(
@@ -100,6 +105,7 @@ def test_compute_peak_and_request_key(tone_capture):
 def test_assemble_device_block_equals_jax(request, capture):
     top, _ = request.getfixturevalue(capture)
     ds = RFDataset(top)
+    jds = jax_dataset(ds)
     chan = ds.channels[0]
     lo, hi = ds.bnds[chan]
     for isub in (None, 0):
@@ -107,7 +113,7 @@ def test_assemble_device_block_equals_jax(request, capture):
                      ds.sti_frame_starts(lo, lo + 4000, 256, 1, 6),
                      np.asarray([lo, lo + 9000, hi - 512])):
             got = sti.assemble_device_block(ds, chan, isub, n_st, 512)
-            want = jsti.assemble_device_block(ds, chan, isub, n_st, 512)
+            want = jsti.assemble_device_block(jds, chan, isub, n_st, 512)
             for g, w in zip(got, want):
                 assert g.dtype == w.dtype
                 np.testing.assert_array_equal(g, w)
@@ -167,11 +173,12 @@ def test_cuda_device_raises_without_gpu(tone_capture):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing the port (its clients included) and running a request
-    (prefetch branch included), a streaming push, a live tick, a merged
-    scheduler cycle, a streaming processor, a filter and a CLI ``sti``
-    leaves jax out of the process; a fresh interpreter, since this one
-    already holds jax."""
+    """Importing the port (its clients included), writing a capture with
+    its writer and running a request (prefetch branch included), a
+    streaming push, a live tick, a merged scheduler cycle, a streaming
+    processor, a filter and a CLI ``sti`` leaves jax and the JAX package
+    out of the process; a fresh interpreter, since this one already holds
+    both."""
     code = textwrap.dedent(f"""
         import sys
         import numpy as np
@@ -200,8 +207,8 @@ def test_port_never_imports_jax(tmp_path):
         import pyspectrogram_tpu_torch.runtime.signals
         import pyspectrogram_tpu_torch.utils.profiling as profiling
         assert "jax" not in sys.modules, "import loaded jax"
-        from pyspectrogram_tpu.io import RFDataset
-        from pyspectrogram_tpu.io.synthetic import write_capture
+        from pyspectrogram_tpu_torch.io import RFDataset
+        from pyspectrogram_tpu_torch.io.synthetic import write_capture
         write_capture({str(tmp_path)!r}, channel="c", n_samples=1 << 14,
                       num_subchannels=2)
         sti.PREFETCH_MIN_BYTES = 0
@@ -240,6 +247,8 @@ def test_port_never_imports_jax(tmp_path):
                          {str(tmp_path / "sti.png")!r}, "--device",
                          "cpu"]) == 0
         assert "jax" not in sys.modules, "a request loaded jax"
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] == "pyspectrogram_tpu"], sys.modules
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -14,11 +14,12 @@ import torch
 
 import jax.numpy as jnp
 
+from port_pairs import jax_spec
 from pyspectrogram_tpu import display as jdisplay
 from pyspectrogram_tpu.display import render as jrender
 from pyspectrogram_tpu.display import tile as jtile
-from pyspectrogram_tpu.display.colormap import get_colormap
 from pyspectrogram_tpu_torch import display
+from pyspectrogram_tpu_torch.display.colormap import get_colormap
 from pyspectrogram_tpu_torch.display import render, tile
 from pyspectrogram_tpu_torch.ops.stft import shifted_freqs
 
@@ -95,12 +96,13 @@ def test_tile_helpers_equal_eager_jax(nfft):
     spec = tile.make_tile_spec(shifted_freqs(nfft, 1e6), (-300.0, 350.0),
                                (-110.0, -40.0), max_nfreqs=nfft // 4)
     got = tile.tile_from_linear(torch.from_numpy(p), spec)
-    want = np.asarray(jtile.quantize_tile_linear(jnp.asarray(p), spec))
+    want = np.asarray(jtile.quantize_tile_linear(jnp.asarray(p),
+                                                 jax_spec(spec)))
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(tile.tile_from_linear(p, spec), got)
     db = _db((16, 2, nfft), nfft).astype(np.float32)
     host = tile.tile_from_db(db, spec)
-    np.testing.assert_array_equal(host, jtile.tile_from_db(db, spec))
+    np.testing.assert_array_equal(host, jtile.tile_from_db(db, jax_spec(spec)))
     np.testing.assert_array_equal(
         tile.tile_from_db(torch.from_numpy(db), spec), host)
 
@@ -135,7 +137,7 @@ def test_save_sti_png_pixels(tmp_path):
 
 def test_save_sti_png_matplotlib_is_the_host_path(tmp_path):
     """renderer="matplotlib" (and "auto" where matplotlib imports) is the
-    JAX function's host contour render."""
+    JAX function's host contour render, copied."""
     pytest.importorskip("matplotlib")
     nfft, ntime = 64, 6
     freqs = shifted_freqs(nfft, 1e6)

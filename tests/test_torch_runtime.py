@@ -6,7 +6,8 @@ same capture and compares what their callbacks received: the Iterated
 payloads (times, frame axes and masks exact; dB within 1e-4 dB on bins
 within 60 dB of each column's peak; uint8 tiles within one level on <=
 0.1% of pixels), the StatsUpdated echoes (equal) and the Terminated codes
-(equal).
+(equal). Each processor gets its own package's config (port_pairs) and
+opens the capture with its own reader.
 """
 
 import dataclasses
@@ -18,16 +19,17 @@ import numpy as np
 import pytest
 import torch
 
-from pyspectrogram_tpu.io.reader import RFDataset
+from port_pairs import jax_config
 from pyspectrogram_tpu.io.synthetic import tone_signal
 from pyspectrogram_tpu.io.writer import DigitalRFWriter
 from pyspectrogram_tpu.runtime import processor as jprocessor
 from pyspectrogram_tpu.runtime import signals as jsignals
-from pyspectrogram_tpu.utils.config import SpectrogramConfig
-from pyspectrogram_tpu.utils.errors import TerminateReason
 from pyspectrogram_tpu_torch.io.memory import MemoryDataset
+from pyspectrogram_tpu_torch.io.reader import RFDataset
 from pyspectrogram_tpu_torch.runtime import processor, signals
 from pyspectrogram_tpu_torch.utils import profiling
+from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig
+from pyspectrogram_tpu_torch.utils.errors import TerminateReason
 
 SR = 100_000
 START = 1_451_661_840 * SR
@@ -51,7 +53,7 @@ def _pair(datasource, top, cfg, tab_id=3, jtop=None, **kw):
                                        callbacks=cb, device="cpu", **kw)
     jev, jcb = _collector(jsignals)
     jp = jprocessor.SpectrogramProcessor(datasource, top if jtop is None
-                                         else jtop, tab_id, cfg,
+                                         else jtop, tab_id, jax_config(cfg),
                                          callbacks=jcb, **kw)
     return p, ev, jp, jev
 
@@ -184,10 +186,12 @@ def test_terminate_raising_callback(tone_capture, capsys):
         raise RuntimeError("widget torn down")
 
     codes = []
-    for mod, make in ((signals, processor.SpectrogramProcessor),
-                      (jsignals, jprocessor.SpectrogramProcessor)):
+    cfg = SpectrogramConfig(nfft=256)
+    for mod, make, c in ((signals, processor.SpectrogramProcessor, cfg),
+                         (jsignals, jprocessor.SpectrogramProcessor,
+                          jax_config(cfg))):
         kw = {"device": "cpu"} if mod is signals else {}
-        proc = make("written", top, 0, SpectrogramConfig(nfft=256),
+        proc = make("written", top, 0, c,
                     callbacks=mod.ProcessorCallbacks(on_iterated=boom,
                                                      on_terminated=boom),
                     written_sleep=0.0, max_iterations=3, **kw)

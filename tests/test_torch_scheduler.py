@@ -3,37 +3,41 @@ package's: the cases of tests/test_scheduler.py but the meshed one, each
 run through both schedulers over the same tab set. Counters must be equal;
 payloads as in tests/test_torch_runtime.py (times exact, dB within 1e-4 dB
 on bins within 60 dB of each column's peak, tiles within one level on <=
-0.1% of pixels)."""
+0.1% of pixels). Each side's processors get that package's own config
+(port_pairs) and open the captures with its own reader."""
 
 import time
 
 import numpy as np
 import pytest
 
+from port_pairs import jax_config
 from pyspectrogram_tpu.io.synthetic import tone_signal
 from pyspectrogram_tpu.io.writer import DigitalRFWriter
 from pyspectrogram_tpu.models import batch as jbatch
 from pyspectrogram_tpu.runtime import processor as jprocessor
 from pyspectrogram_tpu.runtime import scheduler as jscheduler
 from pyspectrogram_tpu.runtime import signals as jsignals
-from pyspectrogram_tpu.utils.config import SpectrogramConfig
-from pyspectrogram_tpu.utils.errors import TerminateReason
 from pyspectrogram_tpu_torch.models import batch, sti
 from pyspectrogram_tpu_torch.runtime import processor, scheduler, signals
+from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig
+from pyspectrogram_tpu_torch.utils.errors import TerminateReason
 from test_torch_runtime import assert_iterated_match
 
 CFG = SpectrogramConfig(nfft=256, nint=1, ntime=16)
 
+#: (processor, scheduler, signals, device kwargs, the side's config from
+#: a port config)
 PORT = (processor.SpectrogramProcessor, scheduler.SharedRefreshScheduler,
-        signals, {"device": "cpu"})
+        signals, {"device": "cpu"}, lambda cfg: cfg)
 JAX = (jprocessor.SpectrogramProcessor, jscheduler.SharedRefreshScheduler,
-       jsignals, {})
+       jsignals, {}, jax_config)
 
 
 def _tabs(side, top, cfgs, sched=None, callbacks=None, **kw):
     """Processors registered with one scheduler (no per-tab threads);
     returns (scheduler, [(processor, events)])."""
-    make, make_sched, sig, dev = side
+    make, make_sched, sig, dev, side_cfg = side
     sched = sched or make_sched(autostart=False)
     tabs = []
     for i, cfg in enumerate(cfgs):
@@ -42,8 +46,8 @@ def _tabs(side, top, cfgs, sched=None, callbacks=None, **kw):
             sig.ProcessorCallbacks(on_iterated=seen["iterated"].append,
                                    on_stats=seen["stats"].append,
                                    on_terminated=seen["terminated"].append)
-        p = make("written", top, i, cfg, callbacks=cbs, scheduler=sched,
-                 **kw, **dev)
+        p = make("written", top, i, side_cfg(cfg), callbacks=cbs,
+                 scheduler=sched, **kw, **dev)
         assert p.is_running
         p.start()
         assert p._thread is None

@@ -16,12 +16,13 @@ import torch
 
 import jax.numpy as jnp
 
-from pyspectrogram_tpu.display.tile import make_tile_spec
+from port_pairs import jax_spec
 from pyspectrogram_tpu.display.tile import (
     quantize_tile_linear as jquantize_tile_linear,
 )
 from pyspectrogram_tpu.kernels.sti_pallas import make_pallas_stream_psd
 from pyspectrogram_tpu.models.streaming import StreamingSti as JStreamingSti
+from pyspectrogram_tpu_torch.display.tile import make_tile_spec
 from pyspectrogram_tpu_torch.kernels import stream_cuda
 from pyspectrogram_tpu_torch.models.streaming import StreamingSti, StreamState
 from pyspectrogram_tpu_torch.ops import stft
@@ -68,8 +69,8 @@ def _tile_match(tile, jtile, lin, spec):
     JAX class's jitted view on <= 0.1% of pixels: XLA's fused CPU program
     rounds (db - cmin) * scale a hair differently from its own eager
     function at level boundaries."""
-    want = np.asarray(jquantize_tile_linear(jnp.asarray(lin), spec, 1e-15,
-                                            spec.qparams))
+    want = np.asarray(jquantize_tile_linear(jnp.asarray(lin), jax_spec(spec),
+                                            1e-15, spec.qparams))
     np.testing.assert_array_equal(tile, want)
     d = np.abs(tile.astype(int) - np.asarray(jtile).astype(int))
     assert d.max() <= 1 and np.count_nonzero(d) <= 1e-3 * d.size
@@ -84,7 +85,7 @@ def _views_match(s, st, js, jst, n_disp, stride):
     spec = _spec(s.nfft)
     ring = st.ring.numpy()
     q, _ = s.snapshot_quantized(st, spec)
-    jq, _ = js.snapshot_quantized(jst, spec)
+    jq, _ = js.snapshot_quantized(jst, jax_spec(spec))
     _tile_match(q, jq, np.roll(ring, -(st.total_cols % s.ring_len), axis=0),
                 spec)
     for kw in ({}, {"n_cols": 40}, {"n_cols": 40, "span_ladder": False},
@@ -97,9 +98,10 @@ def _views_match(s, st, js, jst, n_disp, stride):
     rows = ring[np.mod(cols, s.ring_len)]
     for sp in (None, spec):
         got = s.snapshot_strided(st, n_disp, stride, spec=sp)
-        want = js.snapshot_strided(jst, n_disp, stride, spec=sp)
+        want = js.snapshot_strided(jst, n_disp, stride, spec=jax_spec(sp))
         v, m = s.refresh_view(st, n_disp, stride, spec=sp, n_med=40)
-        jv, jm = js.refresh_view(jst, n_disp, stride, spec=sp, n_med=40)
+        jv, jm = js.refresh_view(jst, n_disp, stride, spec=jax_spec(sp),
+                                 n_med=40)
         np.testing.assert_allclose(m, jm, atol=1e-4, rtol=0)
         if sp is None:
             np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
@@ -339,12 +341,13 @@ def test_stream_columns_equal_plain_at_hop_starts(hop):
 @pytest.mark.parametrize("dtype", ["complex64", "int16"])
 def test_stream_blocks_match_jax_feeder(tmp_path, dtype):
     """io.ingest.stream_blocks yields the JAX feeder's plane-major blocks,
-    bit for bit, in their storage dtype; they feed the port's ring like
-    the JAX ring."""
+    bit for bit, in their storage dtype, each package reading the capture
+    with its own reader; they feed the port's ring like the JAX ring."""
+    from port_pairs import jax_dataset
     from pyspectrogram_tpu.clients.cli import SYNTH_DTYPES
-    from pyspectrogram_tpu.io import RFDataset
     from pyspectrogram_tpu.io.ingest import stream_blocks as jstream_blocks
     from pyspectrogram_tpu.io.synthetic import write_capture
+    from pyspectrogram_tpu_torch.io import RFDataset
     from pyspectrogram_tpu_torch.io.ingest import stream_blocks
 
     write_capture(tmp_path, channel="c", kind="tone", n_samples=1 << 14,
@@ -352,7 +355,8 @@ def test_stream_blocks_match_jax_feeder(tmp_path, dtype):
     ds = RFDataset(tmp_path)
     lo, _ = ds.bnds["c"]
     got = list(stream_blocks(ds, "c", lo + 100, 1024, 6))
-    with jstream_blocks(ds, "c", lo + 100, 1024, 6) as feeder:
+    with jstream_blocks(jax_dataset(ds), "c", lo + 100, 1024,
+                        6) as feeder:
         want = [np.asarray(b) for b in feeder]
     assert len(got) == len(want) == 6
     for g, w in zip(got, want):

@@ -1,4 +1,5 @@
-"""The PyTorch port's display epilogue (CPU) against the JAX package's."""
+"""The PyTorch port's display epilogue (CPU) against the JAX package's,
+each given its own package's TileSpec (port_pairs)."""
 
 import numpy as np
 import pytest
@@ -7,13 +8,14 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from port_pairs import jax_spec
 from pyspectrogram_tpu.display.render import quantize_db_levels as jlevels
 from pyspectrogram_tpu.display.tile import (
-    make_tile_spec,
     quantize_tile_linear as jquantize_tile_linear,
 )
 from pyspectrogram_tpu.ops import stft as jstft
 from pyspectrogram_tpu_torch.display import tile
+from pyspectrogram_tpu_torch.display.tile import make_tile_spec
 from pyspectrogram_tpu_torch.ops import stft
 
 
@@ -31,7 +33,7 @@ def test_tile_from_linear_bit_equal(nfft, crange):
          * 10.0 ** rng.uniform(-13, -3, (16, 2, nfft))).astype(np.float32)
     spec = _spec(nfft, crange=crange)
     want = np.asarray(jax.jit(
-        lambda a: jquantize_tile_linear(a, spec))(jnp.asarray(p)))
+        lambda a: jquantize_tile_linear(a, jax_spec(spec)))(jnp.asarray(p)))
     got = tile.quantize_tile_linear(torch.from_numpy(p), spec).numpy()
     assert got.dtype == np.uint8 and got.shape == want.shape
     assert got.shape[-1] == spec.plot_n
@@ -77,7 +79,7 @@ def test_sti_tile_end_to_end(ntime, nsub):
     starts = (np.arange(ntime) * nfft * nint).astype(np.int32)
     spec = _spec(nfft, crange=(-120.0, -70.0))
     want = jstft.make_sti_fn_pm(nfft=nfft, nint=nint, fft_impl="xla",
-                                contiguous=True, tile=spec)(
+                                contiguous=True, tile=jax_spec(spec))(
         jnp.asarray(x), jnp.asarray(starts))
     got = stft.make_sti_fn_pm(nfft=nfft, nint=nint, contiguous=True,
                               tile=spec)(torch.from_numpy(x),
