@@ -34,6 +34,9 @@ drives the port's paths on the card, checking what comes out:
 - filter_signal over a 30 s, 1 MS/s two-tone capture (58,592 frames of
   nfft 1024) against the same call on the CPU, and regenerate_signal;
 
+B1 and B3 are held to their plain version at every power of two from 256
+to 32768, and two calls of each to the same bits; the build's ptxas report
+must show no spill in their register-pass kernel (fft_common.cuh).
 B2 is held bit for bit to its plain version on adversarial cubes too
 (ties across the middle, +-0, subnormals, +-inf, all-equal columns, n on
 both sides of its tile/radix boundary, odd and even, a batch of 7), in
@@ -96,6 +99,40 @@ def psd_bound(inputs, out, nfft: int, n_transforms: int):
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, out))
     return bound(nbytes, n_transforms * (5 * nfft * math.log2(nfft)
                                          + 7 * nfft))
+
+
+def reg_kernel_resources(build_log: str):
+    """ptxas's registers, spill bytes and stack frame of every instance of
+    the register-pass PSD kernel (fft_common.cuh reg_psd_kernel, B1 and
+    B3 up to 16384 points) in the build's ``-Xptxas -v`` output."""
+    import re
+
+    out, cur = [], None
+    for ln in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S*reg_psd_kernelILi(\d+)E\S*?)'?(?: for|$)",
+                      ln)
+        if m:
+            if cur is None or cur["kernel"] != m.group(1):
+                cur = {"kernel": m.group(1), "nfft": int(m.group(2)),
+                       "registers": None, "spill_stores": None,
+                       "spill_loads": None, "stack": None}
+                out.append(cur)
+            continue
+        if "entry function" in ln or "Function properties" in ln:
+            cur = None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def median_bound(p, out):
@@ -428,7 +465,7 @@ def phase_b3(dev, gen):
     from pyspectrogram_tpu_torch.ops import plain
 
     err, cases = 0.0, 0
-    for nfft in (1024, 4096, 16384, 32768):
+    for nfft in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768):
         for hop in (nfft // 2, nfft // 4, 3 * nfft // 8 + 12):
             for mode, nint in (("welch", 1), ("welch", 2), ("parity", 2)):
                 for nsub in (1, 2):
@@ -438,6 +475,7 @@ def phase_b3(dev, gen):
                                         device=dev)
                         kw = dict(nfft=nfft, nint=nint, mode=mode)
                         got = stream_cuda.stream_psd_cuda(x, hop=hop, **kw)
+                        again = stream_cuda.stream_psd_cuda(x, hop=hop, **kw)
                         starts = torch.arange(k, dtype=torch.int32,
                                               device=dev) * hop
                         want = plain.psd_torch(x, starts, **kw)
@@ -447,9 +485,14 @@ def phase_b3(dev, gen):
                               f"B3 disagrees at nfft={nfft} hop={hop} "
                               f"mode={mode} nint={nint} nsub={nsub} k={k}: "
                               f"max abs {e}")
+                        check(torch.equal(got.view(torch.int32),
+                                          again.view(torch.int32)),
+                              f"B3 differs between two calls at nfft={nfft} "
+                              f"hop={hop} mode={mode} k={k}")
                         err = max(err, e)
                         cases += 1
-    emit({"phase": "b3_vs_plain", "cases": cases, "max_abs_err": err, **LIN})
+    emit({"phase": "b3_vs_plain", "cases": cases, "max_abs_err": err, **LIN,
+          "bit_identical_reruns": cases})
     return err
 
 
@@ -1745,12 +1788,29 @@ def main() -> int:
     print("\n".join(ptxas), file=sys.stderr)
     emit({"phase": "build", "seconds": build_s,
           "nvcc_seconds": _build.build_seconds, "card": card})
+    reg = reg_kernel_resources(_build.build_log)
+    for k in reg:
+        print(f"ptxas {k['kernel']}: {k['registers']} registers, "
+              f"{k['spill_stores']} B spill stores, {k['spill_loads']} B "
+              f"spill loads, {k['stack']} B stack", file=sys.stderr)
+    check(reg or not _build.build_log,
+          "the build log has no ptxas lines for the register-pass kernel")
+    check(all(k["spill_stores"] == k["spill_loads"] == 0 for k in reg),
+          "ptxas spilled in the register-pass kernel: "
+          f"{[k for k in reg if k['spill_stores'] or k['spill_loads']]}")
+    emit({"phase": "ptxas_reg_psd", "kernels": len(reg),
+          "registers": sorted({k["registers"] for k in reg}),
+          "max_spill_bytes": max((k["spill_stores"] + k["spill_loads"]
+                                  for k in reg), default=None),
+          "by_nfft": {n: max(k["registers"] for k in reg if k["nfft"] == n)
+                      for n in sorted({k["nfft"] for k in reg})}})
 
-    # phase 2: B1 against psd_torch on the card
+    # phase 2: B1 against psd_torch on the card, every power of two of its
+    # range, and two calls of it bit-identical
     rng = np.random.default_rng(0)
     b1_err = 0.0
     n_cases = 0
-    for nfft in (256, 1024, 4096, 16384, 32768):
+    for nfft in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768):
         for mode, nint in (("welch", 1), ("welch", 4), ("parity", 3)):
             for nsub in (1, 2):
                 for dtype in ("float32", "int16"):
@@ -1774,6 +1834,7 @@ def main() -> int:
                         sd = torch.from_numpy(st.astype(np.int32)).to(dev)
                         kw = dict(nfft=nfft, nint=nint, mode=mode, ref=ref)
                         got = sti_cuda.sti_psd_cuda(xd, sd, **kw)
+                        again = sti_cuda.sti_psd_cuda(xd, sd, **kw)
                         want = plain.psd_torch(xd, sd, **kw)
                         torch.cuda.synchronize()
                         err = (got - want).abs().max().item()
@@ -1781,10 +1842,14 @@ def main() -> int:
                               f"B1 disagrees at nfft={nfft} mode={mode} "
                               f"nint={nint} nsub={nsub} {dtype} "
                               f"contiguous={contiguous}: max abs {err}")
+                        check(torch.equal(got.view(torch.int32),
+                                          again.view(torch.int32)),
+                              f"B1 differs between two calls at nfft={nfft} "
+                              f"mode={mode} {dtype}")
                         b1_err = max(b1_err, err)
                         n_cases += 1
     emit({"phase": "b1_vs_plain", "cases": n_cases, "max_abs_err": b1_err,
-          "rtol": 2e-4, "atol": 1e-6})
+          "rtol": 2e-4, "atol": 1e-6, "bit_identical_reruns": n_cases})
 
     # phase 3: B2 against its plain version and np.median, bit for bit,
     # adversarial cubes included, in both of its designs
@@ -1985,20 +2050,25 @@ def main() -> int:
     add_counts(launches, phase_mtab_headline(dev, card, ds, sr, tones))
     add_counts(launches, phase_processor_written(dev, card, sr))
 
-    # B1's four-step split at nfft 32768, on a block of the headline's size
-    nfft, nint, ntime = 32768, 4, 16
-    x = rng.standard_normal((4, nfft * nint * ntime)).astype(np.float32)
-    xd = torch.from_numpy(x).to(dev)
-    sd = torch.arange(ntime, dtype=torch.int32, device=dev) * nfft * nint
-    psd_kw = dict(nfft=nfft, nint=nint, mode="welch")
-    err = (sti_cuda.sti_psd_cuda(xd, sd, **psd_kw)
-           - plain.psd_torch(xd, sd, **psd_kw)).abs().max().item()
-    b1_big_ms, b1_big_plain_ms = in_turns(
-        lambda: plain.psd_torch(xd, sd, **psd_kw),
-        lambda: sti_cuda.sti_psd_cuda(xd, sd, **psd_kw))
-    emit({"phase": "timing_b1_nfft32768", "card": card, "nfft": nfft,
-          "nint": nint, "ntime": ntime, "nsub": 2, "b1_max_abs_err": err,
-          "b1_ms": b1_big_ms, "b1_plain_ms": b1_big_plain_ms})
+    # B1 at the top of its one-block range (16384) and as the four-step
+    # split (32768), each on a block of the headline's size
+    for nfft, nint, ntime in ((16384, 4, 32), (32768, 4, 16)):
+        x = rng.standard_normal((4, nfft * nint * ntime)).astype(np.float32)
+        xd = torch.from_numpy(x).to(dev)
+        sd = torch.arange(ntime, dtype=torch.int32, device=dev) * nfft * nint
+        psd_kw = dict(nfft=nfft, nint=nint, mode="welch")
+        got = sti_cuda.sti_psd_cuda(xd, sd, **psd_kw)
+        err = (got - plain.psd_torch(xd, sd, **psd_kw)).abs().max().item()
+        b1_big_ms, b1_big_plain_ms = in_turns(
+            lambda: plain.psd_torch(xd, sd, **psd_kw),
+            lambda: sti_cuda.sti_psd_cuda(xd, sd, **psd_kw))
+        big_bound = psd_bound((xd, sd), got, nfft, ntime * 2 * nint)
+        emit({"phase": f"timing_b1_nfft{nfft}", "card": card, "nfft": nfft,
+              "nint": nint, "ntime": ntime, "nsub": 2, "b1_max_abs_err": err,
+              "b1_ms": b1_big_ms, "b1_plain_ms": b1_big_plain_ms,
+              "b1_device_ms": device_ms(
+                  lambda: sti_cuda.sti_psd_cuda(xd, sd, **psd_kw)),
+              "b1_bound_ms": big_bound[0], "b1_bound_by": big_bound[1]})
 
     # the other paths, on a long two-tone capture at 1 MS/s: the written
     # request at nfft >= 65536 over its first 31 s, the streaming core, and

@@ -1,0 +1,125 @@
+"""Times of the port's PSD and median kernels on one NVIDIA GPU, for
+comparing two checkouts of the port in one run on one card.
+
+    python3 kernel_times.py [--tree DIR] [--label NAME]
+
+Imports ``pyspectrogram_tpu_torch`` from DIR (default: this script's own
+checkout), builds its kernels there, and times each kernel at the shapes
+chip_smoke.py reports: B1 at the reference default (nfft 1024, nint 1,
+ntime 100), the headline (4096, 4, 128), 16384 x 4 x 32 and 32768 x 4 x 16;
+B3 on the overlap-2048 push buffer (nfft 4096, hop 2048, 8 columns); B4 at
+65536 x 4 x 32 and 2^20 x 1 x 16; B2 over the headline's power cube. Two
+subchannels everywhere, float32 planes from a seeded generator on the
+card. A first line gives ptxas's registers and spill bytes of the
+register-pass PSD kernel per nfft (fresh builds only). Each shape prints one
+JSON line: CUDA-event ms per call over
+back-to-back calls, the profiler's device ms (null when no trace held a
+device event), the bound (chip_smoke.bound) and the card's name and power
+limit. To compare a change with its parent, unpack the parent into a
+directory that .gitignore lists and run, in one command, parent, change,
+change, parent. Needs a CUDA device; imports torch, numpy and the port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke
+
+HERE = Path(__file__).resolve().parent
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=str(HERE),
+                    help="checkout whose pyspectrogram_tpu_torch is timed")
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    from pyspectrogram_tpu_torch.kernels import (
+        big_cuda,
+        median_cuda,
+        stream_cuda,
+        sti_cuda,
+    )
+
+    from pyspectrogram_tpu_torch.kernels import _build
+
+    mod = Path(sti_cuda.__file__).resolve()
+    if tree not in mod.parents:
+        raise RuntimeError(f"kernel_times: imported {mod}, not from {tree}")
+    _build.library()
+    reg = chip_smoke.reg_kernel_resources(_build.build_log)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else None
+    label = args.label or tree.name
+    # ptxas's registers and spills of the register-pass kernel, per nfft
+    # (empty when the library came from the build directory)
+    print(json.dumps({"tree": label, "ptxas_reg_psd": {
+        n: [max(k["registers"] for k in reg if k["nfft"] == n),
+            max(k["spill_stores"] + k["spill_loads"] for k in reg
+                if k["nfft"] == n)]
+        for n in sorted({k["nfft"] for k in reg})}}), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def emit(kernel, shape, fn, bound):
+        fn()
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "tree": label, "kernel": kernel, "shape": shape,
+            "ms": chip_smoke.event_ms(fn),
+            "device_ms": chip_smoke.device_ms(fn),
+            "bound_ms": bound[0], "bound_by": bound[1], "card": card}),
+            flush=True)
+
+    for nfft, nint, ntime in ((1024, 1, 100), (4096, 4, 128),
+                              (16384, 4, 32), (32768, 4, 16)):
+        x = torch.randn((4, nfft * nint * ntime), generator=gen, device=dev)
+        sd = torch.arange(ntime, dtype=torch.int32, device=dev) * nfft * nint
+        kw = dict(nfft=nfft, nint=nint, mode="welch")
+        p = sti_cuda.sti_psd_cuda(x, sd, **kw)
+        emit("sti_psd", [nfft, nint, ntime, 2],
+             lambda: sti_cuda.sti_psd_cuda(x, sd, **kw),
+             chip_smoke.psd_bound((x, sd), p, nfft, ntime * 2 * nint))
+        if nfft == 4096:
+            med = median_cuda.median_over_time_cuda(p)
+            emit("median", list(p.shape),
+                 lambda: median_cuda.median_over_time_cuda(p),
+                 chip_smoke.median_bound(p, med))
+    k, hop, nfft = 8, 2048, 4096
+    buf = torch.randn((4, nfft - hop + k * hop), generator=gen, device=dev)
+    got = stream_cuda.stream_psd_cuda(buf, nfft=nfft, hop=hop)
+    emit("stream_psd", [nfft, 1, k, 2, hop],
+         lambda: stream_cuda.stream_psd_cuda(buf, nfft=nfft, hop=hop),
+         chip_smoke.psd_bound((buf,), got, nfft, k * 2))
+    for nfft, nint, ntime in ((1 << 16, 4, 32), (1 << 20, 1, 16)):
+        x = torch.randn((4, nfft * nint * ntime), generator=gen, device=dev)
+        sd = torch.arange(ntime, dtype=torch.int32, device=dev) * nfft * nint
+        kw = dict(nfft=nfft, nint=nint, mode="welch")
+        p = big_cuda.big_psd_cuda(x, sd, **kw)
+        emit("big_psd", [nfft, nint, ntime, 2],
+             lambda: big_cuda.big_psd_cuda(x, sd, **kw),
+             chip_smoke.psd_bound((x, sd), p, nfft, ntime * 2 * nint))
+        del x, p
+    print(json.dumps({"ok": True, "tree": label, "card": card,
+                      "kind": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

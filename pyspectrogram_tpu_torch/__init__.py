@@ -18,7 +18,10 @@ writer, the native ingest, the colormaps and the headless widget kit are
 the port's own copies (utils, io, native, display, clients).
 """
 
-from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig  # noqa: F401
+__version__ = "0.1.0"
+
+from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig  # noqa: F401,E402
+from pyspectrogram_tpu_torch.utils.errors import TerminateReason  # noqa: F401,E402
 from pyspectrogram_tpu_torch.models.batch import BatchedStiPipeline  # noqa: F401
 from pyspectrogram_tpu_torch.models.sti import StiPipeline, StiResult  # noqa: F401
 from pyspectrogram_tpu_torch.models.streaming import StreamingSti  # noqa: F401

@@ -4,23 +4,28 @@
 // Replaces pyspectrogram_tpu/kernels/sti_pallas.py::make_pallas_sti_psd
 // (the pallas_call at sti_pallas.py:555) over its whole range, power-of-two
 // 256 <= nfft <= 32768. It computes what that kernel computes, not how: the
-// TPU kernel factors the DFT into two MXU matmuls; here each segment runs a
-// radix-2 Stockham FFT in shared memory. Up to 16384 points (128 KB) one
-// block holds the whole segment; 32768 points (256 KB) exceed a block's
-// 227 KB, so that size runs as a four-step split over two launches. The
-// kernels live in fft_common.cuh, shared with B3 and B4; this file is B1's
-// entry point, with frame starts read from a device array.
+// TPU kernel factors the DFT into two MXU matmuls; here each segment runs an
+// FFT. Up to 16384 points one block per (column, subchannel) transforms the
+// segment with register-resident radix-16 passes (reg_psd_kernel); 32768
+// points (256 KB) exceed a block's 227 KB of shared memory, so that size
+// runs as a four-step split over two launches. The kernels live in
+// fft_common.cuh, shared with B3 and B4; this file is B1's entry point,
+// with frame starts read from a device array.
 //
 // What bounds it: at nfft = 4096 one segment is ~5*N*log2(N) = 0.25 MFLOP
-// against 32 KB of samples read, far under the float32 ridge, so the kernel
-// is bound by shared-memory traffic (2 * 8N bytes per stage, log2(N)
-// stages) and by the global read of the samples, not by FLOPs. The design
-// keeps the segment resident in shared memory for all stages, fuses the
-// load, int16 widening and window into the first stage, keeps the |X|^2
-// sum in registers (each thread owns fixed bins for every segment) and
-// writes each bin once, already fftshifted. The four-step split adds one
-// round trip of the segment through device memory (8 bytes per sample
-// written and read back), which at these sizes stays mostly in the L2.
+// against 32 KB of samples read, under the float32 ridge (~20 flop/B), so
+// the kernel should be bound by the global read of the samples, with the
+// segment's trips through shared memory next (a radix-2 FFT makes 12 at
+// 4096, 704 KB with 24 barriers). The register-pass design moves the
+// segment through shared memory once per pass boundary (2 exchanges,
+// 128 KB, 2 barriers at 4096), reads pass 0 straight from global memory
+// fused with the int16 widening and the window, with two blocks of 256
+// threads per SM so that one block's reads overlap the other's passes,
+// keeps each thread's |X|^2 sums in registers over the segments and
+// writes each bin once, fftshifted. The
+// four-step split adds one round trip of the segment through device
+// memory (8 bytes per sample written and read back), which at these sizes
+// stays mostly in the L2.
 //
 // starts (ntime,) int32 lives on the device, so contiguous (t*frame_len)
 // and gathered frame starts are one code path.

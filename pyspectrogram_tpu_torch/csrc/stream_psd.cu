@@ -11,16 +11,20 @@
 // (fft_common.cuh) with the start policy StartsHop, so the frame start t*hop
 // is computed in the block and no starts tensor is built or copied; segment
 // seg of column t starts at t*hop + seg*nfft, and parity mode reads segment
-// 0 only. Up to 16384 points one block per (column, subchannel) holds the
-// segment; 32768 takes the four-step split through a workspace.
+// 0 only. Up to 16384 points one block per (column, subchannel) runs the
+// register-pass kernel (reg_psd_kernel); 32768 takes the four-step split
+// through a workspace.
 //
 // What bounds it: overlapping frames read each sample frame_len/hop times.
 // At the JAX bench's stream/4096/overlap2048 push (nfft 4096, nint 1, hop
 // 2048, k 8, nsub 2) the buffer is 4 planes x 18,432 x 4 B = 295 KB, which
 // stays in the 50 MB L2, so the repeated reads cost L2 bandwidth, not HBM
 // (the card's analogue of the TPU keeping the buffer VMEM-resident). At
-// that size the push is bound by launch latency: 16 blocks on 132 SMs. A
-// shared-memory window shared by adjacent columns is left for later work.
+// that size the push is latency-bound: 16 blocks on 132 SMs, each one
+// chain of dependent steps. The register passes shorten that chain from
+// 12 shared-memory stages with 24 barriers to 3 passes with 2 exchanges.
+// A shared-memory window shared by adjacent columns is left for later
+// work.
 
 #include "fft_common.cuh"
 

@@ -3,10 +3,10 @@ entry point for every power-of-two nfft from 256 to 2^20.
 
 Replaces pyspectrogram_tpu/kernels/sti_pallas.py::make_pallas_sti_psd
 over its range, power-of-two nfft from 256 to 32768: per (column,
-subchannel) thread block, window -> radix-2 Stockham FFT in shared memory
--> |X|^2 summed over the segments -> scale -> fftshift. 32768 points do not
-fit one block and run as a four-step split over two launches through a
-workspace. At nfft >= 65536 :func:`sti_psd_cuda` hands the call to kernel
+subchannel) thread block, window -> FFT in register-resident radix-16
+passes that exchange the segment through shared memory -> |X|^2 summed
+over the segments -> scale -> fftshift. 32768 points do not fit one block
+and run as a four-step split over two launches through a workspace. At nfft >= 65536 :func:`sti_psd_cuda` hands the call to kernel
 B4 (kernels.big_cuda), as make_pallas_sti_psd hands it to
 _make_big3_sti_psd (sti_pallas.py:442). The source says what bounds it and
 why.
@@ -26,8 +26,8 @@ from pyspectrogram_tpu_torch.ops.plain import psd_torch
 MIN_NFFT = 256
 #: the widest reference nfft (utils/config.py NFFT_RANGE), through B4
 MAX_NFFT = 1 << 20
-#: 16384 complex float32 values are 128 KB, the most one block's shared
-#: memory holds; above it the kernel takes the two-launch four-step split
+#: the one-block register-pass kernel's largest size (its exchange buffer
+#: is 136 KiB); above it the kernel takes the two-launch four-step split
 ONE_BLOCK_MAX_NFFT = 16384
 #: B1's own range ends here; kernel B4 takes the larger sizes
 B1_MAX_NFFT = 32768

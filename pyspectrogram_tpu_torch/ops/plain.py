@@ -116,5 +116,10 @@ def median_bisect(p: torch.Tensor) -> torch.Tensor:
 
 def to_dbfs(x: torch.Tensor, eps: float = 1e-15) -> torch.Tensor:
     """10*log10(x + eps) — the reference's dB conversion
-    (reference: drfProc.py:308-310)."""
+    (reference: drfProc.py:308-310). float32 as ``jnp.log10`` lowers
+    (:data:`LOG10_E`); float64 (the complex128 path of ops.stft.make_sti_fn)
+    with torch.log10, whose float64 result the float32 constant would cut
+    to ~1e-8."""
+    if x.dtype == torch.float64:
+        return 10.0 * torch.log10(x + eps)
     return 10.0 * (torch.log(x + eps) * LOG10_E)

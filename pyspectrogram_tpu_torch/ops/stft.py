@@ -17,6 +17,10 @@ in :func:`median_over_time_batched`, a batch of them. Host constants — the
 window and the power scale — are built once in numpy float64, as the JAX
 package builds them, and cast to float32 on the device. No step uses a
 matrix product, so the TF32 switches of torch.backends do not apply.
+
+:func:`make_sti_fn` is the JAX package's time-major complex path
+((nsamp, nsub) complex or packed planes, complex64 or complex128) with
+:func:`gather_frames` and :func:`psd_frames`; its FFT is torch.fft.
 """
 
 from __future__ import annotations
@@ -27,14 +31,139 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pyspectrogram_tpu_torch.display.tile import quantize_tile_linear
+# the module, not the name: display.tile imports ops.plain, whose package
+# __init__ imports this module
+from pyspectrogram_tpu_torch.display import tile as display_tile
 from pyspectrogram_tpu_torch.kernels import median_cuda, stream_cuda, sti_cuda
 from pyspectrogram_tpu_torch.ops.plain import psd_torch, to_dbfs
-from pyspectrogram_tpu_torch.ops.windows import WindowSpec
+from pyspectrogram_tpu_torch.ops.windows import WindowSpec, get_window
 
 #: below this many rows the sorting-network median beats the 33-pass
 #: bisection (ops/stft.py:239 of the JAX package)
 MEDIAN_NETWORK_MAX_N = 32
+
+
+def pack_complex_host(x: np.ndarray) -> np.ndarray:
+    """complex (..., ) host array -> real (..., 2) plane-packed view (zero
+    copy) — a copy of pack_complex_host (ops/stft.py:38 of the JAX
+    package). A complex64 array's memory is (float32, float32) pairs."""
+    x = np.ascontiguousarray(x)
+    if x.dtype.kind != "c":
+        raise ValueError(f"expected complex array, got {x.dtype}")
+    real = np.dtype(f"f{x.dtype.itemsize // 2}")
+    return x.view(real).reshape(x.shape + (2,))
+
+
+def gather_frames(samples: torch.Tensor, starts,
+                  frame_len: int) -> torch.Tensor:
+    """Frames of ``frame_len`` samples at ``starts`` of a time-major buffer
+    (ops/stft.py:53 of the JAX package): samples (nsamp, nsub[, 2]),
+    starts (ntime,) -> (ntime, nsub, frame_len[, 2]); (nsamp,) gives
+    (ntime, 1, frame_len). A start is clamped into the buffer the way
+    jax.lax.dynamic_slice clamps it."""
+    nsamp = samples.shape[0]
+    if nsamp < frame_len:
+        raise ValueError(f"buffer of {nsamp} samples is shorter than one "
+                         f"{frame_len}-sample frame")
+    st = torch.as_tensor(starts, device=samples.device).to(torch.int64)
+    idx = st.clamp(0, nsamp - frame_len)[:, None] + torch.arange(
+        frame_len, device=samples.device)
+    frames = samples[idx]                        # (ntime, frame_len, ...)
+    if samples.dim() == 1:
+        return frames[:, None, :]
+    return frames.movedim(1, 2)
+
+
+def _to_complex(frames: torch.Tensor, real_dtype) -> torch.Tensor:
+    """(..., 2) packed real/imag planes or a complex tensor -> complex."""
+    if frames.is_complex():
+        return frames
+    if frames.shape[-1] != 2:
+        raise ValueError(
+            "real-valued sample buffers must pack planes as (..., 2); got "
+            f"shape {tuple(frames.shape)} dtype {frames.dtype}")
+    return torch.complex(frames[..., 0].to(real_dtype),
+                         frames[..., 1].to(real_dtype))
+
+
+def psd_frames(frames: torch.Tensor, window, power_scale: float,
+               fft_fn=torch.fft.fft) -> torch.Tensor:
+    """Windowed two-sided 'spectrum'-scaled periodogram of (..., nfft)
+    complex frames (ops/stft.py:94 of the JAX package)."""
+    real_dtype = (torch.float64 if frames.dtype == torch.complex128
+                  else torch.float32)
+    win = torch.as_tensor(window, device=frames.device).to(real_dtype)
+    X = fft_fn(frames * win)
+    return (X.real.square() + X.imag.square()) * power_scale
+
+
+#: the compute dtypes make_sti_fn takes, and their real parts
+_COMPUTE_REAL = {torch.complex64: torch.float32,
+                 torch.complex128: torch.float64}
+
+
+@functools.lru_cache(maxsize=256)
+def make_sti_fn(
+    *,
+    nfft: int,
+    nint: int = 1,
+    mode: str = "welch",
+    window: WindowSpec = ("kaiser", 1.7),
+    ref: float = 1.0,
+    eps: float = 1e-15,
+    fft_impl: str = "xla",
+    return_linear: bool = False,
+    compute_dtype: torch.dtype = torch.complex64,
+):
+    """Time-major STI — the port of make_sti_fn (ops/stft.py:111 of the
+    JAX package), with its output keys and layout.
+
+    Returns ``f(samples, starts)``: samples (nsamp, nsub) complex, or
+    (nsamp, nsub, 2) packed real/imag planes in any real dtype (e.g. raw
+    int16); starts (ntime,) frame starts. Outputs ``sxx_dbfs`` (ntime,
+    nsub, nfft) and ``sxx_med_dbfs`` (nsub, nfft), plus the linear ``sxx``
+    and ``sxx_med`` with ``return_linear``. It runs on the samples' device;
+    the median is :func:`median_over_time`, so a float32 cube on a card
+    launches kernel B2. ``fft_impl="xla"`` is torch.fft (cuFFT on a card);
+    the JAX package's ``"gemm"`` (its GEMM DFT, kernels/gemm_fft.py) is
+    not ported and raises. ``compute_dtype`` is torch.complex64 or
+    torch.complex128."""
+    win = get_window(window, nfft)                # float64 on the host
+    inv_scale = 1.0 / (float(win.sum()) ** 2 * float(ref) ** 2)
+    frame_len = nfft * nint if mode == "welch" else nfft
+    if mode not in ("parity", "welch"):
+        raise ValueError(f"mode must be 'parity' or 'welch', got {mode!r}")
+    if fft_impl == "gemm":
+        raise ValueError("fft_impl='gemm' is the JAX package's GEMM DFT "
+                         "(pyspectrogram_tpu.kernels.gemm_fft), which the "
+                         "port does not have; use fft_impl='xla' (torch.fft)")
+    if fft_impl != "xla":
+        raise ValueError(f"unknown fft_impl {fft_impl!r}")
+    if compute_dtype not in _COMPUTE_REAL:
+        raise ValueError("compute_dtype must be torch.complex64 or "
+                         f"torch.complex128, got {compute_dtype!r}")
+    real_dtype = _COMPUTE_REAL[compute_dtype]
+    win = win.astype(np.float64 if real_dtype == torch.float64
+                     else np.float32)
+
+    def sti_fn(samples: torch.Tensor, starts) -> dict:
+        frames = gather_frames(samples, starts, frame_len)
+        x = _to_complex(frames, real_dtype).to(compute_dtype)
+        if mode == "welch":
+            x = x.reshape(x.shape[0], x.shape[1], nint, nfft)
+            p = psd_frames(x, win, inv_scale).mean(dim=2)
+        else:
+            p = psd_frames(x, win, inv_scale)
+        p = torch.fft.fftshift(p, dim=-1)          # (ntime, nsub, nfft)
+        p_med = median_over_time(p)                # (nsub, nfft)
+        out = {"sxx_dbfs": to_dbfs(p, eps),
+               "sxx_med_dbfs": to_dbfs(p_med, eps)}
+        if return_linear:
+            out["sxx"] = p
+            out["sxx_med"] = p_med
+        return out
+
+    return sti_fn
 
 
 @functools.lru_cache(maxsize=64)
@@ -238,7 +367,7 @@ def make_sti_fn_pm(
         out = {"sxx_med_dbfs": to_dbfs(p_med, eps)}
         if tile is not None:
             # display mode: the float spectra stay on the device
-            out["tile"] = quantize_tile_linear(
+            out["tile"] = display_tile.quantize_tile_linear(
                 p, tile, eps, default_qp if qparams is None else qparams)
         else:
             out["sxx_dbfs"] = to_dbfs(p, eps)

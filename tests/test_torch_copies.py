@@ -139,6 +139,31 @@ def test_public_names_constants_and_fields(mods):
             assert v == jv, name
 
 
+@pytest.mark.parametrize("sub", ["ops", "models"])
+def test_package_exports_are_the_jax_packages(sub):
+    """The port's ops and models export the JAX package's names, each a
+    callable or class of the port, and the top level has its
+    ``__version__`` and ``TerminateReason``."""
+    import importlib
+
+    import pyspectrogram_tpu as jpkg
+    import pyspectrogram_tpu_torch as pkg
+
+    mod = importlib.import_module(f"pyspectrogram_tpu_torch.{sub}")
+    jmod = importlib.import_module(f"pyspectrogram_tpu.{sub}")
+    assert mod.__all__ == jmod.__all__
+    for name in mod.__all__:
+        v = getattr(mod, name)
+        assert callable(v) and v.__module__.startswith(
+            "pyspectrogram_tpu_torch."), name
+    assert pkg.__version__ == jpkg.__version__
+    assert pkg.TerminateReason is errors.TerminateReason
+    assert [(m.name, m.value) for m in pkg.TerminateReason] == [
+        (m.name, m.value) for m in jpkg.TerminateReason]
+    assert {n for n in dir(jpkg) if not n.startswith("_")
+            and not inspect.ismodule(getattr(jpkg, n))} <= set(dir(pkg))
+
+
 def test_config_validation_and_time_spans():
     for kw in (dict(nfft=16), dict(nint=0), dict(ntime=1), dict(mode="x"),
                dict(precision="fast"), dict(color_range_db=(0.0, -1.0)),

@@ -1,11 +1,16 @@
-"""Every module of the port, and chip_smoke.py, imports in a fresh
-interpreter without loading jax or anything of the JAX package
-(pyspectrogram_tpu): the port keeps its own copies of what it uses.
+"""Every module of the port, chip_smoke.py and kernel_times.py import
+without loading jax or anything of the JAX package (pyspectrogram_tpu): the
+port keeps its own copies of what it uses.
 
-One case per module (pkgutil.walk_packages over the port). Each import runs
-in its own subprocess with JAX_PLATFORMS=cpu and a timeout; a module-scoped
-fixture runs them four at a time, so the cases cost one interpreter start
-each without running one after another.
+One case per module (pkgutil.walk_packages over the port). A module-scoped
+fixture imports them all in turn in ONE fresh interpreter (JAX_PLATFORMS=cpu,
+a timeout), recording after each import whether it failed and which
+forbidden modules ``sys.modules`` holds. While every module before it was
+clean, a case reads its own record: a forbidden module that appears first
+after its import is its own. After the first dirty record the sequence
+says nothing more, so each later case imports its module alone in a fresh
+interpreter of its own. A clean port thus costs one interpreter start, not
+one per module run four at a time beside the other test workers.
 """
 
 import json
@@ -13,7 +18,6 @@ import os
 import pkgutil
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import pytest
@@ -24,30 +28,50 @@ REPO = Path(__file__).resolve().parents[1]
 MODULES = ["pyspectrogram_tpu_torch"] + sorted(
     m.name for m in pkgutil.walk_packages(pyspectrogram_tpu_torch.__path__,
                                           "pyspectrogram_tpu_torch."))
-#: chip_smoke.py is imported, not run: it needs a card
-CASES = MODULES + ["chip_smoke"]
+#: chip_smoke.py and kernel_times.py are imported, not run: they need a card
+CASES = MODULES + ["chip_smoke", "kernel_times"]
+#: marks the probe's own output lines among whatever an import prints
+TAG = "ISOLATION-PROBE "
 
-PROBE = """
+PROBE = f"""
 import importlib, json, sys
-importlib.import_module(sys.argv[1])
-print(json.dumps(sorted(
-    m for m in sys.modules
-    if m == "jax" or m.startswith("jax.")
-    or m.split(".")[0] == "pyspectrogram_tpu")))
+for name in sys.argv[1:]:
+    try:
+        importlib.import_module(name)
+        error = None
+    except BaseException as e:
+        error = repr(e)
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith("jax.")
+                 or m.split(".")[0] == "pyspectrogram_tpu")
+    print({TAG!r} + json.dumps({{"name": name, "error": error, "bad": bad}}),
+          flush=True)
 """
 
 
-def _import_alone(name: str) -> subprocess.CompletedProcess:
+def _probe(names) -> dict:
+    """Import ``names`` in turn in one fresh interpreter -> {name: record}."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
-    return subprocess.run([sys.executable, "-c", PROBE, name], cwd=REPO,
-                          env=env, capture_output=True, text=True,
-                          timeout=120)
+    res = subprocess.run([sys.executable, "-c", PROBE, *names], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    records = [json.loads(ln[len(TAG):]) for ln in res.stdout.splitlines()
+               if ln.startswith(TAG)]
+    assert res.returncode == 0 and len(records) == len(names), res.stderr
+    return {r["name"]: r for r in records}
 
 
 @pytest.fixture(scope="module")
-def imports():
-    with ThreadPoolExecutor(max_workers=4) as ex:
-        return dict(zip(CASES, ex.map(_import_alone, CASES)))
+def in_sequence():
+    """Each case's record from the one-interpreter run, and whether every
+    module before it was clean."""
+    records = _probe(CASES)
+    clean_before, out = True, {}
+    for name in CASES:
+        out[name] = (records[name], clean_before)
+        r = records[name]
+        clean_before = clean_before and r["error"] is None and not r["bad"]
+    return out
 
 
 def test_every_module_is_listed():
@@ -61,7 +85,9 @@ def test_every_module_is_listed():
 
 
 @pytest.mark.parametrize("name", CASES)
-def test_imports_nothing_of_jax(imports, name):
-    res = imports[name]
-    assert res.returncode == 0, res.stderr
-    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+def test_imports_nothing_of_jax(in_sequence, name):
+    record, clean_before = in_sequence[name]
+    if not clean_before:
+        record = _probe([name])[name]
+    assert record["error"] is None, record["error"]
+    assert record["bad"] == []

@@ -91,6 +91,148 @@ def test_sti_fn_pm_matches_jax(nfft, mode, nint, nsub, dtype, ntime):
         got["sxx_med"], np.median(got["sxx"], axis=0).astype(np.float32))
 
 
+def _time_major(nsamp, nsub, kind, seed):
+    """(nsamp, nsub) complex64, or (nsamp, nsub, 2) packed float32 / int16
+    planes, and the full-scale ref that goes with them."""
+    rng = np.random.default_rng(seed)
+    if kind == "int16":
+        return (rng.integers(-2 ** 14, 2 ** 14, (nsamp, nsub, 2))
+                .astype(np.int16), 2.0 ** 15.5)
+    x = (rng.standard_normal((nsamp, nsub))
+         + 1j * rng.standard_normal((nsamp, nsub))).astype(np.complex64)
+    return (x if kind == "complex" else jstft.pack_complex_host(x)), 1.0
+
+
+@pytest.mark.parametrize("ntime", [9, 40])
+@pytest.mark.parametrize("kind", ["complex", "float32", "int16"])
+@pytest.mark.parametrize("mode,nint", [("parity", 1), ("parity", 3),
+                                       ("welch", 4)])
+def test_sti_fn_matches_jax(mode, nint, kind, ntime):
+    """make_sti_fn, complex64: the oracle cases of test_ops_stft.py
+    (nfft 128, nsub 2, spread starts) on complex, packed float32 and raw
+    int16 planes, both median tiers (network at 9, bisection at 40)."""
+    nfft, nsub = 128, 2
+    x, ref = _time_major(nfft * nint * ntime + 64, nsub, kind, seed=ntime)
+    starts = np.linspace(0, len(x) - nfft * nint, ntime).astype(np.int32)
+    kw = dict(nfft=nfft, nint=nint, mode=mode, ref=ref, return_linear=True)
+    want = jstft.make_sti_fn(**kw)(jnp.asarray(x), jnp.asarray(starts))
+    got = stft.make_sti_fn(**kw)(torch.from_numpy(x),
+                                 torch.from_numpy(starts))
+    assert set(got) == set(want)
+    got = {k: v.numpy() for k, v in got.items()}
+    want = {k: np.asarray(v) for k, v in want.items()}
+    for k in got:
+        assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
+    np.testing.assert_allclose(got["sxx"], want["sxx"], **LIN)
+    np.testing.assert_allclose(got["sxx_med"], want["sxx_med"], **LIN)
+    _assert_db_close(got["sxx_dbfs"], want["sxx_dbfs"], want["sxx"])
+    _assert_db_close(got["sxx_med_dbfs"], want["sxx_med_dbfs"],
+                     want["sxx_med"])
+
+
+@pytest.mark.parametrize("kind", ["complex", "float32", "int16"])
+@pytest.mark.parametrize("mode,nint", [("welch", 2), ("parity", 2)])
+def test_sti_fn_complex128_matches_jax(mode, nint, kind):
+    """compute_dtype complex128 against the JAX function under x64, to
+    1e-9 relative: linear power and dB."""
+    import jax
+
+    nfft, ntime, nsub = 64, 7, 1
+    x, ref = _time_major(nfft * nint * ntime, nsub, kind, seed=5)
+    if kind == "complex":
+        x = x.astype(np.complex128)
+    starts = np.linspace(0, len(x) - nfft * nint, ntime).astype(np.int64)
+    kw = dict(nfft=nfft, nint=nint, mode=mode, ref=ref, return_linear=True)
+    with jax.enable_x64(True):
+        want = jstft.make_sti_fn(compute_dtype=jnp.complex128, **kw)(
+            jnp.asarray(x), jnp.asarray(starts))
+        want = {k: np.asarray(v) for k, v in want.items()}
+    got = stft.make_sti_fn(compute_dtype=torch.complex128, **kw)(
+        torch.from_numpy(x), torch.from_numpy(starts))
+    assert set(got) == set(want)
+    for k, v in got.items():
+        assert v.dtype == torch.float64 and v.shape == want[k].shape
+        np.testing.assert_allclose(v.numpy(), want[k], rtol=1e-9, atol=0)
+
+
+def test_sti_fn_packed_int16_is_normalized_complex():
+    """Raw int16 planes with ref in the power scale equal the complex
+    samples divided by ref on the host (test_ops_stft.py:69)."""
+    raw, ref = _time_major(128 * 5, 1, "int16", seed=7)
+    starts = torch.arange(5, dtype=torch.int32) * 128
+    got = stft.make_sti_fn(nfft=128, ref=ref)(torch.from_numpy(raw), starts)
+    c = torch.complex(torch.from_numpy(raw[..., 0].astype(np.float32)),
+                      torch.from_numpy(raw[..., 1].astype(np.float32))) / ref
+    want = stft.make_sti_fn(nfft=128)(c, starts)
+    _assert_db_close(got["sxx_dbfs"].numpy(), want["sxx_dbfs"].numpy(),
+                     10.0 ** (want["sxx_dbfs"].numpy() / 10.0))
+
+
+def test_sti_fn_tone_peak():
+    """An exact-bin tone puts its power in its bin at 0 dBFS
+    (test_ops_stft.py:100)."""
+    nfft, k = 256, -40
+    n = np.arange(nfft * 4)
+    x = np.exp(2j * np.pi * k * n / nfft).astype(np.complex64)[:, None]
+    out = stft.make_sti_fn(nfft=nfft, window="boxcar")(
+        torch.from_numpy(x), torch.tensor([0, nfft, 2 * nfft]))
+    sxx = out["sxx_dbfs"][0, 0].numpy()
+    peak = int(np.argmax(sxx))
+    assert stft.shifted_freqs(nfft, 1e6)[peak] == pytest.approx(
+        k * 1e6 / nfft)
+    assert sxx[peak] == pytest.approx(0.0, abs=1e-3)
+
+
+@pytest.mark.parametrize("shape", [(20,), (20, 2), (20, 2, 2)])
+def test_gather_frames_matches_jax(shape):
+    """Layout (ntime, nsub, frame_len[, 2]) and the dynamic_slice clamp of
+    a start past the end, as the JAX function (test_ops_stft.py:91)."""
+    samples = np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
+    starts = np.array([0, 5, 12, 19], np.int32)
+    got = stft.gather_frames(torch.from_numpy(samples),
+                             torch.from_numpy(starts), 4)
+    want = np.asarray(jstft.gather_frames(jnp.asarray(samples),
+                                          jnp.asarray(starts), 4))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_psd_frames_and_pack_complex_host_match_jax(dtype):
+    import jax
+
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((3, 2, 64))
+         + 1j * rng.standard_normal((3, 2, 64))).astype(dtype)
+    packed = stft.pack_complex_host(x)
+    np.testing.assert_array_equal(packed, jstft.pack_complex_host(x))
+    assert packed.base is not None                   # a view, no copy
+    with pytest.raises(ValueError, match="expected complex"):
+        stft.pack_complex_host(packed)
+    win = get_window("hann", 64)
+    with jax.enable_x64(dtype == np.complex128):
+        want = np.asarray(jstft.psd_frames(jnp.asarray(x), jnp.asarray(win),
+                                           0.25))
+    got = stft.psd_frames(torch.from_numpy(x), win, 0.25).numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, rtol=1e-9 if dtype == np.complex128
+                               else 2e-4, atol=0 if dtype == np.complex128
+                               else 1e-6)
+
+
+def test_sti_fn_refuses_what_jax_refuses_and_gemm():
+    """fft_impl="gemm" (the JAX package's GEMM DFT) is not ported and
+    says so; a bad mode, fft_impl or compute dtype raises as in JAX."""
+    with pytest.raises(ValueError, match="gemm"):
+        stft.make_sti_fn(nfft=256, fft_impl="gemm")
+    for kw in (dict(mode="median"), dict(fft_impl="pallas"),
+               dict(compute_dtype=torch.float32)):
+        with pytest.raises(ValueError):
+            stft.make_sti_fn(nfft=256, **kw)
+    with pytest.raises(ValueError, match="pack planes"):
+        stft.make_sti_fn(nfft=64)(torch.zeros(256, 2), torch.tensor([0]))
+
+
 @pytest.mark.parametrize("contiguous", [True, False])
 @pytest.mark.parametrize("mode,nint", [("welch", 1), ("welch", 4),
                                        ("parity", 3)])
@@ -246,20 +388,192 @@ FOUR_STEP = {32768: (128, 256), 65536: (256, 256), 131072: (512, 256),
              262144: (512, 512), 524288: (1024, 512),
              1048576: (1024, 1024)}
 
+#: the one-block register-pass kernel's sizes (csrc/fft_common.cuh,
+#: reg_psd_kernel): B1 and B3 up to 16384 points
+ONE_BLOCK = [256, 512, 1024, 2048, 4096, 8192, 16384]
 
-@pytest.mark.parametrize("nfft", [256, 4096, 16384, 32768, 65536, 131072,
-                                  262144, 524288, 1048576])
+
+def _reg_plan(n):
+    """RegPlan of fft_common.cuh: (points per thread P, threads, radices
+    first to last): radix-16 passes, the small radix last."""
+    p = 32 if n >= 16384 else 16
+    a = (n.bit_length() - 1) // 4
+    tail = n >> (4 * a)
+    return p, n // p, [16] * a + ([tail] if tail > 1 else [])
+
+
+def _rpad(i):
+    """The exchange buffer's padded index (rpad): one slot per 16."""
+    return i + (i >> 4)
+
+
+def _w16(m):
+    """The kernel's constant W_16^m (w16); exact in complex128."""
+    return torch.exp(torch.tensor(-2j * np.pi / 16, dtype=torch.complex128)
+                     * m)
+
+
+def _dft_regs(v):
+    """dft_regs on v[..., R]: radix-2 Stockham stages, stage p multiplying
+    v[i + R/2] by W_16^(8k/p), k = i mod p, into y[2i-k] and y[2i-k+p]."""
+    r = v.shape[-1]
+    for s in range(r.bit_length() - 1):
+        p = 1 << s
+        i = torch.arange(r // 2)
+        k = i & (p - 1)
+        a, b = v[..., i], v[..., i + r // 2] * _w16((8 * k) // p)
+        y = torch.empty_like(v)
+        y[..., 2 * i - k], y[..., 2 * i - k + p] = a + b, a - b
+        v = y
+    return v
+
+
+def _reg_fft_model(x, tw):
+    """reg_psd_kernel's transform of windowed segments x (..., N), step for
+    step: pass 0 reads x[j + r*N/16] from global memory (j = thread +
+    q*threads); pass PASS >= 1 reads the exchange buffer at rpad(j +
+    r*N/R) and multiplies point r by the product, over the set bits b of
+    r, of tw_at(e1 << b) (tw[e mod N/2], negated when e has bit N/2),
+    e1 = (j mod NS)*N/(NS*R); each non-last pass writes point r to
+    rpad((j/NS)*NS*R + j mod NS + r*NS). Returns the last pass's
+    registers v (..., threads, Q, R) and their bins j + r*N/R, with the
+    (write, read) buffer indices of each exchange."""
+    n = x.shape[-1]
+    p, th, radices = _reg_plan(n)
+    buf = torch.full(x.shape[:-1] + (_rpad(n - 1) + 1,), float("nan"),
+                     dtype=x.dtype)
+    ns, exchanges, dst = 1, [], None
+    for pas, r in enumerate(radices):
+        j = torch.arange(th)[:, None] + torch.arange(p // r)[None, :] * th
+        src = j[..., None] + torch.arange(r) * (n // r)       # (th, Q, R)
+        if pas == 0:
+            v = x[..., src]
+        else:
+            buf[..., _rpad(dst)] = v_prev
+            exchanges.append((_rpad(dst), _rpad(src)))
+            v = buf[..., _rpad(src)]
+            # tw_at(e1 << b) for each bit b of r, multiplied together
+            e1 = (j & (ns - 1)) * (n // (ns * r))
+            w = torch.ones(src.shape, dtype=tw.dtype)
+            for b in range(r.bit_length() - 1):
+                e = e1 << b
+                wb = tw[e & (n // 2 - 1)] * torch.where(
+                    (e & (n // 2)) > 0, -1.0, 1.0).to(tw.dtype)
+                bit = ((torch.arange(r) >> b) & 1).bool()
+                w[..., bit] = w[..., bit] * wb[..., None]
+            v = v * w
+        v = _dft_regs(v)
+        dst = ((j // ns) * ns * r + (j & (ns - 1)))[..., None] \
+            + torch.arange(r) * ns
+        v_prev = v
+        ns *= r
+    return v, src, exchanges
+
+
+def _reg_psd_model(samples_pm, starts_fn, ntime, *, nfft, nint, mode, ref,
+                   dtype=torch.complex128):
+    """reg_psd_kernel's whole column loop: the clamped start, the widened
+    and windowed segments, |X|^2 summed per thread bin in segment order,
+    the scale and the fftshifted store out[(k + N/2) mod N]."""
+    from pyspectrogram_tpu_torch.kernels._build import psd_device_constants
+
+    win, tw, inv_scale = psd_device_constants(
+        nfft, nint, mode, ("kaiser", 1.7), ref, torch.device("cpu"))
+    tw = torch.view_as_complex(tw.view(-1, 2)).to(dtype)
+    nseg = nint if mode == "welch" else 1
+    nsub, nsamp = samples_pm.shape[0] // 2, samples_pm.shape[1]
+    out = torch.full((ntime, nsub, nfft), float("nan"), dtype=torch.float64)
+    for t in range(ntime):
+        st = min(max(int(starts_fn(t)), 0), nsamp - nseg * nfft)
+        seg = samples_pm[:, st:st + nseg * nfft].to(torch.float64)
+        c = torch.complex(seg[0::2], seg[1::2]).reshape(nsub, nseg, nfft)
+        v, bins, _ = _reg_fft_model(c.to(dtype) * win.to(torch.float64), tw)
+        acc = torch.zeros(v.shape[:1] + v.shape[2:], dtype=torch.float64)
+        for s in range(nseg):
+            acc += v[:, s].real ** 2 + v[:, s].imag ** 2
+        out[t][:, (bins + nfft // 2) & (nfft - 1)] = acc * inv_scale
+    return out
+
+
+@pytest.mark.parametrize("nfft", ONE_BLOCK + [32768, 65536, 131072, 262144,
+                                              524288, 1048576])
 def test_kernel_fft_index_plan(nfft):
     """The kernels' butterfly, twiddle and output-bin indexing is the DFT
     (the CUDA sources run only on the card; their plan is checked here):
-    one block up to 16384 points, the four-step split above, B4's
-    (N1, N2) table up to 1024 x 1024 included."""
+    the one-block register passes up to 16384 points, the four-step split
+    above, B4's (N1, N2) table up to 1024 x 1024 included."""
     rng = np.random.default_rng(nfft)
     x = rng.standard_normal(nfft) + 1j * rng.standard_normal(nfft)
-    plan = (_stockham_numpy(x) if nfft <= sti_cuda.ONE_BLOCK_MAX_NFFT
-            else _four_step_numpy(x, *FOUR_STEP[nfft]))
-    np.testing.assert_allclose(plan, np.fft.fft(x),
+    if nfft in ONE_BLOCK:
+        tw = torch.exp(-2j * np.pi * torch.arange(nfft // 2,
+                                                  dtype=torch.float64) / nfft)
+        v, bins, _ = _reg_fft_model(torch.from_numpy(x), tw)
+        plan = np.empty(nfft, complex)
+        plan[bins.numpy().ravel()] = v.numpy().ravel()
+    else:
+        plan = _four_step_numpy(x, *FOUR_STEP[nfft])
+    np.testing.assert_allclose(plan, torch.fft.fft(torch.from_numpy(x)),
                                rtol=0, atol=1e-9 * np.sqrt(nfft))
+
+
+@pytest.mark.parametrize("nfft", ONE_BLOCK)
+def test_reg_plan_layout(nfft):
+    """The register plan's shape: 16-point passes with the small radix
+    last, 16 points a thread (32 at 16384); every exchange writes each
+    padded slot once and reads each written slot once, and a half-warp's
+    16 accesses fall on 16 distinct 8-byte bank pairs; each thread's bins
+    are distinct and cover the spectrum once, so every bin is stored
+    once."""
+    p, th, radices = _reg_plan(nfft)
+    assert np.prod(radices) == nfft and th * p == nfft
+    assert all(r == 16 for r in radices[:-1]) and radices[0] == 16
+    tw = torch.exp(-2j * np.pi * torch.arange(nfft // 2,
+                                              dtype=torch.float64) / nfft)
+    _, bins, exchanges = _reg_fft_model(
+        torch.zeros(nfft, dtype=torch.complex128), tw)
+    assert len(exchanges) == len(radices) - 1
+    assert sorted(bins.ravel().tolist()) == list(range(nfft))
+    for wr, rd in exchanges:
+        assert sorted(wr.ravel().tolist()) == sorted(rd.ravel().tolist())
+        assert len(set(wr.ravel().tolist())) == nfft
+        for idx in (wr, rd):          # (threads, Q, R): lanes along dim 0
+            for q in range(idx.shape[1]):
+                for r in range(idx.shape[2]):
+                    lanes = idx[:, q, r].reshape(-1, 16) % 16
+                    assert all(len(set(h.tolist())) == 16 for h in lanes)
+
+
+@pytest.mark.parametrize("policy", ["array", "hop"])
+@pytest.mark.parametrize("nfft", ONE_BLOCK)
+def test_reg_psd_model_matches_plain(nfft, policy):
+    """The model of reg_psd_kernel, with float32 twiddles and window as
+    the kernel reads them, against ops.plain.psd_torch (B1's and B3's
+    plain version) at the kernels' tolerance: gathered starts clamped at
+    both ends (B1, StartsArray) and t*hop (B3, StartsHop); welch over 3
+    segments, parity, float32 and int16 planes."""
+    rng = np.random.default_rng(nfft)
+    ntime, nsub = 3, 2
+    for mode, nint, dtype in (("welch", 3, "float32"), ("parity", 2, "int16")):
+        fl = nfft * nint if mode == "welch" else nfft
+        hop = 3 * nfft // 8 + 12
+        nsamp = fl - hop + ntime * hop if policy == "hop" else fl * ntime + 77
+        if dtype == "int16":
+            x = torch.from_numpy(rng.integers(-2 ** 14, 2 ** 14, (
+                2 * nsub, nsamp)).astype(np.int16))
+            ref = 2.0 ** 15.5
+        else:
+            x = torch.from_numpy(rng.standard_normal(
+                (2 * nsub, nsamp)).astype(np.float32))
+            ref = 1.0
+        if policy == "hop":
+            starts = torch.arange(ntime, dtype=torch.int32) * hop
+        else:
+            starts = torch.tensor([-40, nsamp // 3, nsamp], dtype=torch.int32)
+        got = _reg_psd_model(x, lambda t: starts[t], ntime, nfft=nfft,
+                             nint=nint, mode=mode, ref=ref)
+        want = plain.psd_torch(x, starts, nfft=nfft, nint=nint, mode=mode,
+                               ref=ref)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **LIN)
 
 
 @pytest.mark.parametrize("contiguous", [True, False])

@@ -122,7 +122,22 @@ CASES = [(hop, mode, nint) for hop in (None, 512, 384, 300)
 def test_streaming_matches_jax(case):
     """Pushes, ring, carry, counter and every view against the JAX class.
     nsub, the ring's divisibility by k (slice vs scatter store), the block
-    dtype and return_db vary across the cases and pushes."""
+    dtype and return_db vary across the cases and pushes.
+
+    Case 0 failed once in a full parallel run of the suite (its first test
+    in a fresh worker, beside five others): the first push's dB columns
+    missed the 1e-4 dB check on 296 of 4,059 bins, by up to 1.74e-4 dB.
+    On the three bins the report shows, the JAX columns were the float64
+    periodogram's to 2.3e-6 dB and the port's (plain torch.fft on the CPU)
+    were off it by up to 1.2e-4 dB, at ordinary white-noise levels; in
+    every other run the port is within 3e-5 dB of the JAX columns on every
+    checked bin. Not reproduced since, in 8 runs of this file under load
+    (with the isolation probes,
+    the five first-scheduled files or the whole collection, -n 6) nor alone
+    under CPU load, other MKL instruction sets, MKL_CBWR settings, thread
+    counts or misaligned buffers: torch's CPU FFT gave the same bits every
+    time. The check stays as it is; the isolation probes now start one
+    interpreter in place of 49 (test_torch_isolation.py)."""
     hop, mode, nint = CASES[case]
     nfft = 1024
     nsub = 1 + case % 2
