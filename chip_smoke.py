@@ -36,7 +36,9 @@ drives the port's paths on the card, checking what comes out:
 
 B1 and B3 are held to their plain version at every power of two from 256
 to 32768, and two calls of each to the same bits; the build's ptxas report
-must show no spill in their register-pass kernel (fft_common.cuh).
+must show no spill in their register-pass kernel or in either launch of
+the four-step split (fft_common.cuh), whose two launches are also timed
+alone.
 B2 is held bit for bit to its plain version on adversarial cubes too
 (ties across the middle, +-0, subnormals, +-inf, all-equal columns, n on
 both sides of its tile/radix boundary, odd and even, a batch of 7), in
@@ -101,20 +103,24 @@ def psd_bound(inputs, out, nfft: int, n_transforms: int):
                                          + 7 * nfft))
 
 
-def reg_kernel_resources(build_log: str):
+def kernel_resources(build_log: str, kernel: str):
     """ptxas's registers, spill bytes and stack frame of every instance of
-    the register-pass PSD kernel (fft_common.cuh reg_psd_kernel, B1 and
-    B3 up to 16384 points) in the build's ``-Xptxas -v`` output."""
+    the template ``kernel`` in the build's ``-Xptxas -v`` output, each with
+    its nfft (the product of its leading integer template arguments)."""
+    import math
     import re
 
+    name = re.compile(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S*" + kernel + r"I((?:Li\d+E)+)\S*?)'?"
+                      r"(?: for|$)")
     out, cur = [], None
     for ln in build_log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?(\S*reg_psd_kernelILi(\d+)E\S*?)'?(?: for|$)",
-                      ln)
+        m = name.search(ln)
         if m:
             if cur is None or cur["kernel"] != m.group(1):
-                cur = {"kernel": m.group(1), "nfft": int(m.group(2)),
+                cur = {"kernel": m.group(1),
+                       "nfft": math.prod(int(v) for v in
+                                         re.findall(r"\d+", m.group(2))),
                        "registers": None, "spill_stores": None,
                        "spill_loads": None, "stack": None}
                 out.append(cur)
@@ -133,6 +139,63 @@ def reg_kernel_resources(build_log: str):
         if m:
             cur["registers"] = int(m.group(1))
     return out
+
+
+def reg_kernel_resources(build_log: str):
+    """kernel_resources of the register-pass PSD kernel (fft_common.cuh
+    reg_psd_kernel, B1 and B3 up to 16384 points)."""
+    return kernel_resources(build_log, "reg_psd_kernel")
+
+
+def four_step_resources(build_log: str):
+    """kernel_resources of both launches of the four-step split
+    (fft_common.cuh fs_cols_kernel, fs_rows_kernel: B1 and B3 at 32768,
+    B4), each entry with its launch, "cols" or "rows"."""
+    out = []
+    for launch in ("cols", "rows"):
+        for k in kernel_resources(build_log, f"fs_{launch}_kernel"):
+            out.append(dict(k, launch=launch))
+    return out
+
+
+def ptxas_summary(res):
+    """{nfft: [most registers, most spill bytes]} over ptxas entries."""
+    return {n: [max(k["registers"] for k in res if k["nfft"] == n),
+                max(k["spill_stores"] + k["spill_loads"] for k in res
+                    if k["nfft"] == n)]
+            for n in sorted({k["nfft"] for k in res})}
+
+
+def four_step_launch_ms(samples_pm, starts, nfft: int, nint: int,
+                        iters=20):
+    """CUDA-event ms of the four-step split's launch 1 (columns) alone,
+    launch 2 (rows) alone and the pair, over all columns of ``starts`` in
+    one launch pair (welch, the default window): the two launches that
+    kernels.big_cuda.four_step_psd makes per chunk of columns."""
+    import torch
+
+    from pyspectrogram_tpu_torch.kernels import _build, big_cuda
+
+    nsub, ntime = samples_pm.shape[0] // 2, starts.shape[0]
+    win, tw, inv = _build.psd_device_constants(
+        nfft, nint, "welch", ("kaiser", 1.7), 1.0, samples_pm.device)
+    work = torch.empty((ntime, nsub, nint, nfft, 2),
+                       device=samples_pm.device)
+    out = torch.empty((ntime, nsub, nfft), device=samples_pm.device)
+
+    def cols():
+        big_cuda.launch_cols(samples_pm, starts, nfft, nint, win, tw, work)
+
+    def rows():
+        big_cuda.launch_rows(work, nsub, ntime, nfft, nint, tw, inv, out)
+
+    def pair():
+        cols()
+        rows()
+
+    return {"cols_ms": event_ms(cols, iters=iters),
+            "rows_ms": event_ms(rows, iters=iters),
+            "pair_ms": event_ms(pair, iters=iters)}
 
 
 def median_bound(p, out):
@@ -224,23 +287,26 @@ def event_ms(fn, iters=50, warm=5):
     return a.elapsed_time(b) / iters
 
 
-def device_ms(fn, iters=20, tries=5):
-    """Mean device time per call of what ``fn`` runs on the card (kernels,
-    memsets), summed from a torch.profiler trace: the work itself, without
-    the host's gaps between calls that event_ms also counts when the host
-    launches slower than the card finishes.
+def device_trace(fn, iters=20, tries=5, expect=None):
+    """(mean device ms per call, device events in the trace) of what ``fn``
+    runs on the card (kernels, memsets), summed from a torch.profiler trace
+    of ``iters`` calls: the work itself, without the host's gaps between
+    calls that event_ms also counts when the host launches slower than the
+    card finishes.
 
-    A trace of CUDA activity now and then comes back without a device
-    event. Such a trace is taken again, up to ``tries`` traces in all;
-    when none of them holds device time the result is None (printed as
-    null) and a note goes to stderr. The number is context beside the
-    CUDA-event ``ms``, which every kernel entry has, so a missing trace
-    does not fail the run."""
+    A trace now and then comes back without a device event, or, late in a
+    long process, without some of them (seen on an H100: 33 of B4's 40
+    launches), and then reads low. Such a trace is taken again, up to
+    ``tries`` traces in all, until one holds a device event, or, with
+    ``expect`` (the device events the calls make), that many. When none
+    does the result is (None, the most events a trace held) and a note
+    goes to stderr."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    most = 0
     for attempt in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -251,15 +317,24 @@ def device_ms(fn, iters=20, tries=5):
             path = Path(tmp) / "trace.json"
             prof.export_chrome_trace(str(path))
             events = json.loads(path.read_text())["traceEvents"]
-        total_us = sum(float(e.get("dur", 0.0)) for e in events
-                       if e.get("cat") in ("kernel", "gpu_memset"))
-        if total_us > 0:
-            return total_us / 1e3 / iters
-        print(f"chip_smoke: trace {attempt} of {tries} held no device "
-              "event", file=sys.stderr, flush=True)
-    print("chip_smoke: device_ms is null: no trace held device time",
+        dev = [float(e.get("dur", 0.0)) for e in events
+               if e.get("cat") in ("kernel", "gpu_memset")]
+        most = max(most, len(dev))
+        if sum(dev) > 0 and len(dev) >= (expect or 1):
+            return sum(dev) / 1e3 / iters, len(dev)
+        print(f"chip_smoke: trace {attempt} of {tries} held {len(dev)} "
+              f"device events of {expect or 'some'}", file=sys.stderr,
+              flush=True)
+    print("chip_smoke: device_ms is null: no trace held the device time",
           file=sys.stderr, flush=True)
-    return None
+    return None, most
+
+
+def device_ms(fn, iters=20, tries=5):
+    """device_trace's mean device ms per call, or None. The number is
+    context beside the CUDA-event ``ms``, which every kernel entry has, so
+    a missing trace does not fail the run."""
+    return device_trace(fn, iters, tries)[0]
 
 
 def in_turns(plain_fn, kernel_fn, iters=50):
@@ -1789,12 +1864,14 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s,
           "nvcc_seconds": _build.build_seconds, "card": card})
     reg = reg_kernel_resources(_build.build_log)
-    for k in reg:
+    fs = four_step_resources(_build.build_log)
+    for k in reg + fs:
         print(f"ptxas {k['kernel']}: {k['registers']} registers, "
               f"{k['spill_stores']} B spill stores, {k['spill_loads']} B "
               f"spill loads, {k['stack']} B stack", file=sys.stderr)
-    check(reg or not _build.build_log,
-          "the build log has no ptxas lines for the register-pass kernel")
+    check((reg and fs) or not _build.build_log,
+          "the build log has no ptxas lines for the register-pass kernel "
+          "or the four-step split")
     check(all(k["spill_stores"] == k["spill_loads"] == 0 for k in reg),
           "ptxas spilled in the register-pass kernel: "
           f"{[k for k in reg if k['spill_stores'] or k['spill_loads']]}")
@@ -1804,6 +1881,16 @@ def main() -> int:
                                   for k in reg), default=None),
           "by_nfft": {n: max(k["registers"] for k in reg if k["nfft"] == n)
                       for n in sorted({k["nfft"] for k in reg})}})
+    check(all(k["spill_stores"] == k["spill_loads"] == 0 for k in fs),
+          "ptxas spilled in the four-step split: "
+          f"{[k for k in fs if k['spill_stores'] or k['spill_loads']]}")
+    emit({"phase": "ptxas_four_step", "kernels": len(fs),
+          "max_spill_bytes": max((k["spill_stores"] + k["spill_loads"]
+                                  for k in fs), default=None),
+          "cols_by_nfft": ptxas_summary([k for k in fs
+                                         if k["launch"] == "cols"]),
+          "rows_by_nfft": ptxas_summary([k for k in fs
+                                         if k["launch"] == "rows"])})
 
     # phase 2: B1 against psd_torch on the card, every power of two of its
     # range, and two calls of it bit-identical
@@ -2052,6 +2139,7 @@ def main() -> int:
 
     # B1 at the top of its one-block range (16384) and as the four-step
     # split (32768), each on a block of the headline's size
+    b1_big = {}
     for nfft, nint, ntime in ((16384, 4, 32), (32768, 4, 16)):
         x = rng.standard_normal((4, nfft * nint * ntime)).astype(np.float32)
         xd = torch.from_numpy(x).to(dev)
@@ -2063,12 +2151,19 @@ def main() -> int:
             lambda: plain.psd_torch(xd, sd, **psd_kw),
             lambda: sti_cuda.sti_psd_cuda(xd, sd, **psd_kw))
         big_bound = psd_bound((xd, sd), got, nfft, ntime * 2 * nint)
-        emit({"phase": f"timing_b1_nfft{nfft}", "card": card, "nfft": nfft,
-              "nint": nint, "ntime": ntime, "nsub": 2, "b1_max_abs_err": err,
-              "b1_ms": b1_big_ms, "b1_plain_ms": b1_big_plain_ms,
-              "b1_device_ms": device_ms(
-                  lambda: sti_cuda.sti_psd_cuda(xd, sd, **psd_kw)),
-              "b1_bound_ms": big_bound[0], "b1_bound_by": big_bound[1]})
+        b1_big[nfft] = {
+            "phase": f"timing_b1_nfft{nfft}", "card": card, "nfft": nfft,
+            "nint": nint, "ntime": ntime, "nsub": 2, "b1_max_abs_err": err,
+            "b1_ms": b1_big_ms, "b1_plain_ms": b1_big_plain_ms,
+            "b1_device_ms": device_trace(
+                lambda: sti_cuda.sti_psd_cuda(xd, sd, **psd_kw),
+                expect=20 * (2 if nfft > sti_cuda.ONE_BLOCK_MAX_NFFT
+                             else 1))[0],
+            "b1_bound_ms": big_bound[0], "b1_bound_by": big_bound[1]}
+        if nfft > sti_cuda.ONE_BLOCK_MAX_NFFT:
+            # the four-step split's two launches, each timed alone
+            b1_big[nfft].update(four_step_launch_ms(xd, sd, nfft, nint))
+        emit(b1_big[nfft])
 
     # the other paths, on a long two-tone capture at 1 MS/s: the written
     # request at nfft >= 65536 over its first 31 s, the streaming core, and
@@ -2105,10 +2200,16 @@ def main() -> int:
         b4[nfft] = in_turns(lambda: plain.psd_torch(xd, sd, **psd_kw),
                             lambda: big_cuda.big_psd_cuda(xd, sd, **psd_kw),
                             iters=20)
+        # the device time from a 20-call trace that holds every launch the
+        # calls made (a trace that drops kernel events reads low)
+        chunks = -(-ntime // big_cuda.chunk_columns(
+            ntime, 2 * nint * nfft * 8, big_cuda.WORKSPACE_MAX_BYTES))
+        dev_ms, dev_events = device_trace(
+            lambda: big_cuda.big_psd_cuda(xd, sd, **psd_kw),
+            expect=2 * chunks * 20)
         b4[nfft] += (fft_alone_ms(xd, sd, nfft, nfft * nint),
                      psd_bound((xd, sd), got, nfft, ntime * 2 * nint),
-                     device_ms(lambda: big_cuda.big_psd_cuda(xd, sd, **psd_kw),
-                               iters=5))
+                     dev_ms)
         del got
         n_proc = nfft * nint * ntime * 2
         emit({"phase": f"timing_b4_nfft{nfft}", "card": card, "nfft": nfft,
@@ -2117,6 +2218,9 @@ def main() -> int:
               "b4_ms": b4[nfft][0], "b4_plain_ms": b4[nfft][1],
               "b4_fft_alone_ms": b4[nfft][2], "b4_bound_ms": b4[nfft][3][0],
               "b4_bound_by": b4[nfft][3][1], "b4_device_ms": b4[nfft][4],
+              "b4_device_events": dev_events,
+              "b4_launches_traced": 2 * chunks * 20,
+              **four_step_launch_ms(xd, sd, nfft, nint),
               "b4_samples_per_s": n_proc / (b4[nfft][0] * 1e-3)})
 
     head = timing["headline"]
@@ -2177,7 +2281,10 @@ def main() -> int:
          "bound_ms": b4[1 << 16][3][0], "bound_by": b4[1 << 16][3][1],
          "library_ms": None, "fft_alone_ms": b4[1 << 16][2],
          "nfft1048576_ms": b4[1 << 20][0],
-         "nfft1048576_bound_ms": b4[1 << 20][3][0]},
+         "nfft1048576_bound_ms": b4[1 << 20][3][0],
+         "nfft32768_b1_ms": b1_big[32768]["b1_ms"],
+         "nfft32768_b1_device_ms": b1_big[32768]["b1_device_ms"],
+         "nfft32768_b1_bound_ms": b1_big[32768]["b1_bound_ms"]},
     ]})
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was never launched on the port's paths")

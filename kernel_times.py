@@ -8,7 +8,11 @@ checkout), builds its kernels there, and times each kernel at the shapes
 chip_smoke.py reports: B1 at the reference default (nfft 1024, nint 1,
 ntime 100), the headline (4096, 4, 128), 16384 x 4 x 32 and 32768 x 4 x 16;
 B3 on the overlap-2048 push buffer (nfft 4096, hop 2048, 8 columns); B4 at
-65536 x 4 x 32 and 2^20 x 1 x 16; B2 over the headline's power cube. Two
+65536 x 4 x 32 and 2^20 x 1 x 16; B2 over the headline's power cube; and
+the four-step split's two launches (columns, rows) alone and as a pair at
+B1's 32768 x 4 x 16 and B4's two shapes, with its column chunking against
+chunks of half the L2 and the profiler's event count against the
+launches. Two
 subchannels everywhere, float32 planes from a seeded generator on the
 card. A first line gives ptxas's registers and spill bytes of the
 register-pass PSD kernel per nfft (fresh builds only). Each shape prints one
@@ -31,6 +35,53 @@ from pathlib import Path
 import chip_smoke
 
 HERE = Path(__file__).resolve().parent
+
+
+def four_step_launches(torch, big_cuda, sti_cuda, gen, dev, label, card,
+                       nfft, nint, ntime):
+    """One JSON line for the four-step split at nfft x nint x ntime x 2:
+    CUDA-event ms of launch 1 (columns) alone, launch 2 (rows) alone and
+    the pair, over all columns in one launch pair
+    (chip_smoke.four_step_launch_ms); the wrapper's ms with its workspace
+    in chunks of up to WORKSPACE_MAX_BYTES and, event and device ms, in
+    chunks of half the card's L2; the profiler's device ms and device
+    events over 5 and over 20 calls of the wrapper, beside the launches
+    those calls made."""
+    x = torch.randn((4, nfft * nint * ntime), generator=gen, device=dev)
+    sd = torch.arange(ntime, dtype=torch.int32, device=dev) * nfft * nint
+    kw = dict(nfft=nfft, nint=nint, mode="welch")
+    wrapper = sti_cuda.sti_psd_cuda
+    launches = chip_smoke.four_step_launch_ms(x, sd, nfft, nint)
+    col_bytes = 2 * nint * nfft * 8
+    chunk = big_cuda.chunk_columns(ntime, col_bytes,
+                                   big_cuda.WORKSPACE_MAX_BYTES)
+    half_l2 = torch.cuda.get_device_properties(dev).L2_cache_size // 2
+    line = {"tree": label, "kernel": "four_step",
+            "shape": [nfft, nint, ntime, 2], **launches,
+            "chunk_columns": chunk,
+            "wrapper_ms": chip_smoke.event_ms(lambda: wrapper(x, sd, **kw),
+                                              iters=20),
+            "half_l2_bytes": half_l2,
+            "half_l2_chunk_columns": big_cuda.chunk_columns(
+                ntime, col_bytes, half_l2)}
+    saved = big_cuda.WORKSPACE_MAX_BYTES
+    big_cuda.WORKSPACE_MAX_BYTES = half_l2
+    try:
+        line["wrapper_half_l2_ms"] = chip_smoke.event_ms(
+            lambda: wrapper(x, sd, **kw), iters=20)
+        line["device_ms_half_l2"] = chip_smoke.device_ms(
+            lambda: wrapper(x, sd, **kw))
+    finally:
+        big_cuda.WORKSPACE_MAX_BYTES = saved
+    n_chunks = -(-ntime // chunk)
+    for iters in (5, 20):
+        ms, events = chip_smoke.device_trace(lambda: wrapper(x, sd, **kw),
+                                             iters=iters)
+        line[f"device_ms_{iters}"] = ms
+        line[f"device_events_{iters}"] = events
+        line[f"launches_{iters}"] = 2 * n_chunks * iters
+    line["card"] = card
+    print(json.dumps(line), flush=True)
 
 
 def main() -> int:
@@ -60,19 +111,24 @@ def main() -> int:
     if tree not in mod.parents:
         raise RuntimeError(f"kernel_times: imported {mod}, not from {tree}")
     _build.library()
-    reg = chip_smoke.reg_kernel_resources(_build.build_log)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else None
     label = args.label or tree.name
-    # ptxas's registers and spills of the register-pass kernel, per nfft
-    # (empty when the library came from the build directory)
-    print(json.dumps({"tree": label, "ptxas_reg_psd": {
-        n: [max(k["registers"] for k in reg if k["nfft"] == n),
-            max(k["spill_stores"] + k["spill_loads"] for k in reg
-                if k["nfft"] == n)]
-        for n in sorted({k["nfft"] for k in reg})}}), flush=True)
+    # ptxas's registers and spills of the register-pass kernel and of the
+    # four-step split's two launches, per nfft (empty when the library came
+    # from the build directory)
+    log = _build.build_log
+    fs = chip_smoke.four_step_resources(log)
+    print(json.dumps({
+        "tree": label,
+        "ptxas_reg_psd": chip_smoke.ptxas_summary(
+            chip_smoke.reg_kernel_resources(log)),
+        "ptxas_four_step_cols": chip_smoke.ptxas_summary(
+            [k for k in fs if k["launch"] == "cols"]),
+        "ptxas_four_step_rows": chip_smoke.ptxas_summary(
+            [k for k in fs if k["launch"] == "rows"])}), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -116,6 +172,11 @@ def main() -> int:
              lambda: big_cuda.big_psd_cuda(x, sd, **kw),
              chip_smoke.psd_bound((x, sd), p, nfft, ntime * 2 * nint))
         del x, p
+    if hasattr(big_cuda, "launch_cols"):
+        for nfft, nint, ntime in ((1 << 15, 4, 16), (1 << 16, 4, 32),
+                                  (1 << 20, 1, 16)):
+            four_step_launches(torch, big_cuda, sti_cuda, gen, dev, label,
+                               card, nfft, nint, ntime)
     print(json.dumps({"ok": True, "tree": label, "card": card,
                       "kind": torch.cuda.get_device_name(0)}), flush=True)
     return 0

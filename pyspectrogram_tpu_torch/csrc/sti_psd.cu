@@ -8,9 +8,10 @@
 // FFT. Up to 16384 points one block per (column, subchannel) transforms the
 // segment with register-resident radix-16 passes (reg_psd_kernel); 32768
 // points (256 KB) exceed a block's 227 KB of shared memory, so that size
-// runs as a four-step split over two launches. The kernels live in
-// fft_common.cuh, shared with B3 and B4; this file is B1's entry point,
-// with frame starts read from a device array.
+// runs as the four-step split over two launches, through big_psd.cu's
+// entry points (kernels/big_cuda.py four_step_psd). The kernels live in
+// fft_common.cuh, shared with B3 and B4; this file is B1's entry point up
+// to 16384 points, with frame starts read from a device array.
 //
 // What bounds it: at nfft = 4096 one segment is ~5*N*log2(N) = 0.25 MFLOP
 // against 32 KB of samples read, under the float32 ridge (~20 flop/B), so
@@ -22,40 +23,38 @@
 // fused with the int16 widening and the window, with two blocks of 256
 // threads per SM so that one block's reads overlap the other's passes,
 // keeps each thread's |X|^2 sums in registers over the segments and
-// writes each bin once, fftshifted. The
-// four-step split adds one round trip of the segment through device
-// memory (8 bytes per sample written and read back), which at these sizes
-// stays mostly in the L2.
+// writes each bin once, fftshifted. At 32768 the four-step split (the
+// register passes over batches of sub-FFTs, big_psd.cu's entry points)
+// adds one round trip of the segment through device memory (8 bytes per
+// sample written and read back).
 //
 // starts (ntime,) int32 lives on the device, so contiguous (t*frame_len)
 // and gathered frame starts are one code path.
 
 #include "fft_common.cuh"
 
-// dtype: 0 = float32 planes, 1 = int16 planes. work: for nfft 32768, a
-// float2 workspace of ntime * nsub * nseg * nfft elements (ignored below).
-// Returns cudaGetLastError() after the launches (0 on success).
+// 256 <= nfft <= 16384; 32768 runs the four-step split's entry points
+// (big_psd.cu). dtype: 0 = float32 planes, 1 = int16 planes. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int pst_sti_psd(const void* x, int dtype, long long nsamp,
                            int nsub, const void* starts, int ntime, int nfft,
                            int nseg, const void* win, const void* tw,
-                           float inv_scale, void* work, void* out,
-                           void* stream) {
+                           float inv_scale, void* out, void* stream) {
   if (ntime <= 0 || nsub <= 0 || nsub > 65535 || nseg <= 0 ||
       nsamp < static_cast<long long>(nseg) * nfft)
     return static_cast<int>(cudaErrorInvalidValue);
   const StartsArray st{static_cast<const int*>(starts)};
   const float* w = static_cast<const float*>(win);
   const float2* t = static_cast<const float2*>(tw);
-  float2* wk = static_cast<float2*>(work);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e =
       dtype == 0
           ? dispatch_small(nfft, static_cast<const float*>(x), nsamp, nsub,
-                           st, ntime, nseg, w, t, inv_scale, wk, o, s)
+                           st, ntime, nseg, w, t, inv_scale, o, s)
       : dtype == 1
           ? dispatch_small(nfft, static_cast<const int16_t*>(x), nsamp, nsub,
-                           st, ntime, nseg, w, t, inv_scale, wk, o, s)
+                           st, ntime, nseg, w, t, inv_scale, o, s)
           : cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

@@ -42,9 +42,20 @@ extern "C" int pst_stream_psd(const void* x, long long nsamp, int nsub,
       static_cast<long long>(k - 1) * hop + static_cast<long long>(nseg) * nfft
           > nsamp)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch_small(
-      nfft, static_cast<const float*>(x), nsamp, nsub, StartsHop{hop}, k,
-      nseg, static_cast<const float*>(win), static_cast<const float2*>(tw),
-      inv_scale, static_cast<float2*>(work), static_cast<float*>(out),
-      static_cast<cudaStream_t>(stream)));
+  const float* xf = static_cast<const float*>(x);
+  const float* w = static_cast<const float*>(win);
+  const float2* t = static_cast<const float2*>(tw);
+  float2* wk = static_cast<float2*>(work);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nfft == 32768) {  // the four-step split 128 x 256, as B1's
+    cudaError_t e = launch_fs_cols<128, 256>(xf, nsamp, nsub, StartsHop{hop},
+                                             k, nseg, w, t, wk, s);
+    if (e == cudaSuccess)
+      e = launch_fs_rows<128, 256>(wk, nsub, k, nseg, t, inv_scale, o, s);
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(dispatch_small(nfft, xf, nsamp, nsub,
+                                         StartsHop{hop}, k, nseg, w, t,
+                                         inv_scale, o, s));
 }

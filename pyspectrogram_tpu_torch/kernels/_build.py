@@ -110,16 +110,19 @@ def library() -> ctypes.CDLL:
             _compile(out, srcs)
         lib = ctypes.CDLL(str(out))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        psd_args = [vp, i32, i64, i32, vp, i32, i32, i32, vp, vp,
-                    ctypes.c_float, vp, vp, vp]
-        lib.pst_sti_psd.argtypes = psd_args
-        lib.pst_big_psd.argtypes = psd_args
+        lib.pst_sti_psd.argtypes = [vp, i32, i64, i32, vp, i32, i32, i32,
+                                    vp, vp, ctypes.c_float, vp, vp]
+        lib.pst_four_step_cols.argtypes = [vp, i32, i64, i32, vp, i32, i32,
+                                           i32, vp, vp, vp, vp]
+        lib.pst_four_step_rows.argtypes = [vp, i32, i32, i32, i32, vp,
+                                           ctypes.c_float, vp, vp]
         lib.pst_stream_psd.argtypes = [vp, i64, i32, i32, i32, i32, i32, vp,
                                        vp, ctypes.c_float, vp, vp, vp]
         lib.pst_median_tile.argtypes = [vp, i32, i32, i64, vp, vp]
         lib.pst_median_radix.argtypes = [vp, i32, i32, i64, i32, i32, vp, vp,
                                          vp, vp, vp, vp]
-        for fn in (lib.pst_sti_psd, lib.pst_big_psd, lib.pst_stream_psd,
+        for fn in (lib.pst_sti_psd, lib.pst_four_step_cols,
+                   lib.pst_four_step_rows, lib.pst_stream_psd,
                    lib.pst_median_tile, lib.pst_median_radix):
             fn.restype = i32
         _LIB = lib
@@ -144,14 +147,34 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+#: the four-step splits N1 x N2 of csrc (big_psd.cu PST_FOUR_STEP): B1 and
+#: B3 at 32768, B4 above; smaller sizes run the one-block kernel
+FOUR_STEP = {1 << 15: (128, 256), 1 << 16: (256, 256), 1 << 17: (512, 256),
+             1 << 18: (512, 512), 1 << 19: (1024, 512),
+             1 << 20: (1024, 1024)}
+
+
+def twiddle_table(nfft: int) -> np.ndarray:
+    """The kernels' twiddles in complex128: W_N^m for m < N/2 (the one-block
+    kernel), or for a four-step size N = N1*N2 three small tables one after
+    the other, W_N1^m (m < N1/2), W_N2^m (m < N2/2) and W_N^l (l < N2)."""
+    def w(n, count):
+        return np.exp(-2j * np.pi * np.arange(count) / n)
+
+    if nfft not in FOUR_STEP:
+        return w(nfft, nfft // 2)
+    n1, n2 = FOUR_STEP[nfft]
+    return np.concatenate([w(n1, n1 // 2), w(n2, n2 // 2), w(nfft, n2)])
+
+
 @functools.lru_cache(maxsize=64)
 def psd_device_constants(nfft, nint, mode, window, ref, device):
-    """(window, twiddles W_N^m for m < N/2, scale 1/((sum w)^2 ref^2 nseg))
-    — float64 on the host like the JAX kernel's (sti_pallas.py:451-456),
+    """(window, twiddle_table(nfft), scale 1/((sum w)^2 ref^2 nseg)) —
+    float64 on the host like the JAX kernel's (sti_pallas.py:451-456),
     cast to float32 on ``device``."""
     win, scale = psd_constants(window, nfft, ref)
     nseg = nint if mode == "welch" else 1
-    tw = np.exp(-2j * np.pi * np.arange(nfft // 2) / nfft).astype(np.complex64)
+    tw = twiddle_table(nfft).astype(np.complex64)
     return (torch.from_numpy(win).to(device),
             torch.from_numpy(tw.view(np.float32)).to(device),
             float(np.float32(scale / nseg)))

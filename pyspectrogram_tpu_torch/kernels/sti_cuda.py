@@ -6,8 +6,10 @@ over its range, power-of-two nfft from 256 to 32768: per (column,
 subchannel) thread block, window -> FFT in register-resident radix-16
 passes that exchange the segment through shared memory -> |X|^2 summed
 over the segments -> scale -> fftshift. 32768 points do not fit one block
-and run as a four-step split over two launches through a workspace. At nfft >= 65536 :func:`sti_psd_cuda` hands the call to kernel
-B4 (kernels.big_cuda), as make_pallas_sti_psd hands it to
+and run as B4's four-step split (kernels.big_cuda.four_step_psd: two
+launches per chunk of columns through a workspace). At nfft >= 65536
+:func:`sti_psd_cuda` hands the call to kernel B4 (kernels.big_cuda), as
+make_pallas_sti_psd hands it to
 _make_big3_sti_psd (sti_pallas.py:442). The source says what bounds it and
 why.
 
@@ -72,22 +74,22 @@ def sti_psd_cuda(samples_pm: torch.Tensor, starts: torch.Tensor, *,
     if nsamp < nseg * nfft:
         raise ValueError(f"buffer of {nsamp} samples is shorter than one "
                          f"{nseg * nfft}-sample frame")
+    if nfft > ONE_BLOCK_MAX_NFFT:
+        # the four-step split over chunks of columns (B4's loop)
+        return big_cuda.four_step_psd(samples_pm, starts, nfft=nfft,
+                                      nint=nint, mode=mode, window=window,
+                                      ref=ref, counter=sti_psd_cuda)
     win, tw, inv_scale = _build.psd_device_constants(
         nfft, nint, mode, window, ref, samples_pm.device)
     out = torch.empty((ntime, nsub, nfft), dtype=torch.float32,
                       device=samples_pm.device)
     if ntime == 0:
         return out
-    work = None
-    if nfft > ONE_BLOCK_MAX_NFFT:
-        # the four-step split's per-segment intermediate (complex float32)
-        work = torch.empty((ntime, nsub, nseg, nfft, 2), dtype=torch.float32,
-                           device=samples_pm.device)
     rc = _build.library().pst_sti_psd(
         samples_pm.data_ptr(), 0 if samples_pm.dtype == torch.float32 else 1,
         nsamp, nsub, starts.data_ptr(), ntime, nfft, nseg, win.data_ptr(),
-        tw.data_ptr(), inv_scale, None if work is None else work.data_ptr(),
-        out.data_ptr(), _build.stream_of(samples_pm))
+        tw.data_ptr(), inv_scale, out.data_ptr(),
+        _build.stream_of(samples_pm))
     _build.check(rc, "sti_psd")
     _build.count(sti_psd_cuda)
     return out

@@ -344,46 +344,8 @@ def test_wrappers_refuse_other_devices():
                                     nfft=1024, hop=512)
 
 
-def _stockham_numpy(x, tw=None):
-    """csrc/sti_psd.cu's radix-2 Stockham index plan, in numpy; ``tw`` the
-    W_n^m (m < n/2) the kernel reads, strided out of a longer table."""
-    n = len(x)
-    lg, half = n.bit_length() - 1, n // 2
-    if tw is None:
-        tw = np.exp(-2j * np.pi * np.arange(half) / n)
-    i = np.arange(half)
-    buf = np.empty(n, complex)
-    a, b = x[i], x[i + half]
-    buf[2 * i], buf[2 * i + 1] = a + b, a - b
-    for lp in range(1, lg - 1):
-        p = 1 << lp
-        a, b = buf[i].copy(), buf[i + half].copy()
-        k = i & (p - 1)
-        bw = b * tw[k << (lg - 1 - lp)]
-        buf[2 * i - k], buf[2 * i - k + p] = a + bw, a - bw
-    bw = buf[i + half] * tw[i]
-    return np.concatenate([buf[i] + bw, buf[i] - bw])
-
-
-def _four_step_numpy(x, n1=128, n2=256):
-    """csrc/sti_psd.cu's four-step plan for nfft = n1*n2: fs_cols_kernel's
-    column DFTs and twiddle into the workspace Y[k1][n2], fs_rows_kernel's
-    row DFTs and its bin k = k1 + n1*k2."""
-    n = n1 * n2
-    half = n // 2
-    tw = np.exp(-2j * np.pi * np.arange(half) / n)  # the kernel's table
-    cols = x.reshape(n1, n2).T     # cols[j][i] = x[n2 * i + j]
-    y = np.stack([_stockham_numpy(c, tw[::n2]) for c in cols], axis=1)
-    m = np.arange(n2)[None, :] * np.arange(n1)[:, None]       # n2 * k1
-    y *= np.where(m & half, -1.0, 1.0) * tw[m & (half - 1)]   # y[k1][n2]
-    rows = np.stack([_stockham_numpy(r, tw[::n1]) for r in y])  # [k1][k2]
-    out = np.empty(n, complex)
-    k1, k2 = np.meshgrid(np.arange(n1), np.arange(n2), indexing="ij")
-    out[k1 + n1 * k2] = rows
-    return out
-
-
-#: the four-step splits (N1, N2) of csrc: B1 (and B3) at 32768, B4 above
+#: the four-step splits (N1, N2) of csrc (big_psd.cu PST_FOUR_STEP,
+#: _build.FOUR_STEP): B1 (and B3) at 32768, B4 above
 FOUR_STEP = {32768: (128, 256), 65536: (256, 256), 131072: (512, 256),
              262144: (512, 512), 524288: (1024, 512),
              1048576: (1024, 1024)}
@@ -393,13 +355,28 @@ FOUR_STEP = {32768: (128, 256), 65536: (256, 256), 131072: (512, 256),
 ONE_BLOCK = [256, 512, 1024, 2048, 4096, 8192, 16384]
 
 
+def _radices(m):
+    """SubPlan of fft_common.cuh: radix-16 passes, the small radix last."""
+    a = (m.bit_length() - 1) // 4
+    tail = m >> (4 * a)
+    return [16] * a + ([tail] if tail > 1 else [])
+
+
 def _reg_plan(n):
     """RegPlan of fft_common.cuh: (points per thread P, threads, radices
-    first to last): radix-16 passes, the small radix last."""
+    first to last)."""
     p = 32 if n >= 16384 else 16
-    a = (n.bit_length() - 1) // 4
-    tail = n >> (4 * a)
-    return p, n // p, [16] * a + ([tail] if tail > 1 else [])
+    return p, n // p, _radices(n)
+
+
+def _cols_plan(n1):
+    """ColsPlan: (points a thread, sub-FFTs (columns) a block)."""
+    return (32 if n1 >= 512 else 16), 16
+
+
+def _rows_plan(n2):
+    """RowsPlan: (points a thread, sub-FFTs (rows) a block)."""
+    return 16, 8
 
 
 def _rpad(i):
@@ -428,37 +405,43 @@ def _dft_regs(v):
     return v
 
 
-def _reg_fft_model(x, tw):
-    """reg_psd_kernel's transform of windowed segments x (..., N), step for
-    step: pass 0 reads x[j + r*N/16] from global memory (j = thread +
-    q*threads); pass PASS >= 1 reads the exchange buffer at rpad(j +
-    r*N/R) and multiplies point r by the product, over the set bits b of
-    r, of tw_at(e1 << b) (tw[e mod N/2], negated when e has bit N/2),
-    e1 = (j mod NS)*N/(NS*R); each non-last pass writes point r to
-    rpad((j/NS)*NS*R + j mod NS + r*NS). Returns the last pass's
-    registers v (..., threads, Q, R) and their bins j + r*N/R, with the
-    (write, read) buffer indices of each exchange."""
+def _tw_at(tw, e, m):
+    """tw_at<M>: W_M^e from the table tw[j] = W_M^j, j < M/2, negated when
+    e has bit M/2."""
+    return tw[e & (m // 2 - 1)] * torch.where((e & (m // 2)) > 0, -1.0,
+                                              1.0).to(tw.dtype)
+
+
+def _reg_fft_model(x, tw, p=None):
+    """The register passes' transform of sub-FFTs x (..., M), step for
+    step (sub_passes of fft_common.cuh), P points a thread (RegPlan's by
+    default): pass 0 reads x[d + r*M/16] from global memory (d = lane +
+    q*threads); pass PASS >= 1 reads the exchange buffer at point d +
+    r*M/R and multiplies point r by the product, over the set bits b of r,
+    of tw_at(e1 << b), e1 = (d mod NS)*M/(NS*R); each non-last pass writes
+    point r to (d/NS)*NS*R + d mod NS + r*NS. Returns the last pass's
+    registers v (..., threads, Q, R) and their bins d + r*M/R, with the
+    (write, read) point indices of each exchange."""
     n = x.shape[-1]
-    p, th, radices = _reg_plan(n)
-    buf = torch.full(x.shape[:-1] + (_rpad(n - 1) + 1,), float("nan"),
-                     dtype=x.dtype)
+    if p is None:
+        p = _reg_plan(n)[0]
+    th = n // p
+    buf = torch.full(x.shape[:-1] + (n,), float("nan"), dtype=x.dtype)
     ns, exchanges, dst = 1, [], None
-    for pas, r in enumerate(radices):
+    for pas, r in enumerate(_radices(n)):
         j = torch.arange(th)[:, None] + torch.arange(p // r)[None, :] * th
         src = j[..., None] + torch.arange(r) * (n // r)       # (th, Q, R)
         if pas == 0:
             v = x[..., src]
         else:
-            buf[..., _rpad(dst)] = v_prev
-            exchanges.append((_rpad(dst), _rpad(src)))
-            v = buf[..., _rpad(src)]
+            buf[..., dst] = v_prev
+            exchanges.append((dst, src))
+            v = buf[..., src]
             # tw_at(e1 << b) for each bit b of r, multiplied together
             e1 = (j & (ns - 1)) * (n // (ns * r))
             w = torch.ones(src.shape, dtype=tw.dtype)
             for b in range(r.bit_length() - 1):
-                e = e1 << b
-                wb = tw[e & (n // 2 - 1)] * torch.where(
-                    (e & (n // 2)) > 0, -1.0, 1.0).to(tw.dtype)
+                wb = _tw_at(tw, e1 << b, n)
                 bit = ((torch.arange(r) >> b) & 1).bool()
                 w[..., bit] = w[..., bit] * wb[..., None]
             v = v * w
@@ -470,11 +453,39 @@ def _reg_fft_model(x, tw):
     return v, src, exchanges
 
 
+def _four_step_model(x, tw, n1, n2):
+    """The four-step split of fft_common.cuh on segments x (..., N1*N2),
+    step for step, with the kernels' packed tables tw (W_N1^m, m < N1/2;
+    W_N2^m, m < N2/2; W_N^l, l < N2). Launch 1 (fs_cols_kernel): column n2
+    of x viewed (N1, N2) through the register passes (ColsPlan's points a
+    thread), bin k1 times tw_at<N1>(n2*k1 >> log2 N2) * W_N^(n2*k1 mod N2)
+    into Y[k1][n2]. Launch 2 (fs_rows_kernel): each row of Y through the
+    register passes (16 points a thread); bin k2 of row k1 is X[k1 +
+    N1*k2]. Returns X (..., N) in natural order."""
+    n = n1 * n2
+    tw1, tw2, twlo = tw[:n1 // 2], tw[n1 // 2:(n1 + n2) // 2], \
+        tw[(n1 + n2) // 2:]
+    assert len(twlo) == n2
+    cols = x.reshape(x.shape[:-1] + (n1, n2)).transpose(-1, -2)
+    v, k1, _ = _reg_fft_model(cols, tw1, p=_cols_plan(n1)[0])
+    c = torch.arange(n2)[:, None, None, None]                 # column n2
+    e = c * k1                                                # < N
+    w = _tw_at(tw1, e >> (n2.bit_length() - 1), n1) * twlo[e & (n2 - 1)]
+    y = torch.empty(x.shape[:-1] + (n1, n2), dtype=x.dtype)
+    y[..., k1.expand_as(e), c.expand_as(e)] = v * w
+    v, k2, _ = _reg_fft_model(y, tw2, p=_rows_plan(n2)[0])
+    out = torch.empty(x.shape, dtype=x.dtype)
+    rows = torch.arange(n1)[:, None, None, None]
+    out[..., (rows + n1 * k2).expand(v.shape[-4:])] = v
+    return out
+
+
 def _reg_psd_model(samples_pm, starts_fn, ntime, *, nfft, nint, mode, ref,
                    dtype=torch.complex128):
-    """reg_psd_kernel's whole column loop: the clamped start, the widened
-    and windowed segments, |X|^2 summed per thread bin in segment order,
-    the scale and the fftshifted store out[(k + N/2) mod N]."""
+    """reg_psd_kernel's whole column loop (fs_cols_kernel's and
+    fs_rows_kernel's at a four-step size): the clamped start, the widened
+    and windowed segments, |X|^2 summed per bin in segment order, the scale
+    and the fftshifted store out[(k + N/2) mod N]."""
     from pyspectrogram_tpu_torch.kernels._build import psd_device_constants
 
     win, tw, inv_scale = psd_device_constants(
@@ -487,12 +498,26 @@ def _reg_psd_model(samples_pm, starts_fn, ntime, *, nfft, nint, mode, ref,
         st = min(max(int(starts_fn(t)), 0), nsamp - nseg * nfft)
         seg = samples_pm[:, st:st + nseg * nfft].to(torch.float64)
         c = torch.complex(seg[0::2], seg[1::2]).reshape(nsub, nseg, nfft)
-        v, bins, _ = _reg_fft_model(c.to(dtype) * win.to(torch.float64), tw)
+        c = c.to(dtype) * win.to(torch.float64)
+        if nfft in FOUR_STEP:
+            v, bins = _four_step_model(c, tw, *FOUR_STEP[nfft]), \
+                torch.arange(nfft)
+        else:
+            v, bins, _ = _reg_fft_model(c, tw)
         acc = torch.zeros(v.shape[:1] + v.shape[2:], dtype=torch.float64)
         for s in range(nseg):
             acc += v[:, s].real ** 2 + v[:, s].imag ** 2
         out[t][:, (bins + nfft // 2) & (nfft - 1)] = acc * inv_scale
     return out
+
+
+def _half_warps_distinct(addr, banks=16):
+    """Every 16 consecutive threads (addr's first axis) touch distinct
+    ``banks`` slots (8-byte bank pairs) at every other index."""
+    a = addr.reshape(addr.shape[0], -1)
+    lanes = a.reshape(-1, 16, a.shape[1]) % banks
+    return all(len(set(lanes[h, :, k].tolist())) == 16
+               for h in range(lanes.shape[0]) for k in range(a.shape[1]))
 
 
 @pytest.mark.parametrize("nfft", ONE_BLOCK + [32768, 65536, 131072, 262144,
@@ -502,16 +527,22 @@ def test_kernel_fft_index_plan(nfft):
     (the CUDA sources run only on the card; their plan is checked here):
     the one-block register passes up to 16384 points, the four-step split
     above, B4's (N1, N2) table up to 1024 x 1024 included."""
+    from pyspectrogram_tpu_torch.kernels._build import (
+        FOUR_STEP as BUILD_FOUR_STEP,
+        twiddle_table,
+    )
+
+    assert BUILD_FOUR_STEP == FOUR_STEP
     rng = np.random.default_rng(nfft)
     x = rng.standard_normal(nfft) + 1j * rng.standard_normal(nfft)
+    tw = torch.from_numpy(twiddle_table(nfft))
     if nfft in ONE_BLOCK:
-        tw = torch.exp(-2j * np.pi * torch.arange(nfft // 2,
-                                                  dtype=torch.float64) / nfft)
         v, bins, _ = _reg_fft_model(torch.from_numpy(x), tw)
         plan = np.empty(nfft, complex)
         plan[bins.numpy().ravel()] = v.numpy().ravel()
     else:
-        plan = _four_step_numpy(x, *FOUR_STEP[nfft])
+        plan = _four_step_model(torch.from_numpy(x), tw,
+                                *FOUR_STEP[nfft]).numpy()
     np.testing.assert_allclose(plan, torch.fft.fft(torch.from_numpy(x)),
                                rtol=0, atol=1e-9 * np.sqrt(nfft))
 
@@ -534,23 +565,102 @@ def test_reg_plan_layout(nfft):
     assert len(exchanges) == len(radices) - 1
     assert sorted(bins.ravel().tolist()) == list(range(nfft))
     for wr, rd in exchanges:
+        wr, rd = _rpad(wr), _rpad(rd)
         assert sorted(wr.ravel().tolist()) == sorted(rd.ravel().tolist())
         assert len(set(wr.ravel().tolist())) == nfft
         for idx in (wr, rd):          # (threads, Q, R): lanes along dim 0
-            for q in range(idx.shape[1]):
-                for r in range(idx.shape[2]):
-                    lanes = idx[:, q, r].reshape(-1, 16) % 16
-                    assert all(len(set(h.tolist())) == 16 for h in lanes)
+            assert _half_warps_distinct(idx)
+
+
+@pytest.mark.parametrize("nfft", sorted(FOUR_STEP))
+def test_four_step_layout(nfft):
+    """Both launches of the four-step split as fs_cols_kernel and
+    fs_rows_kernel map them. Launch 1: 16 columns a block, thread (lane j,
+    column b) at j*16 + b, point i of column b at i*16 + b. Launch 2: 8
+    rows a block, thread b*T + j, point i of row b at b*PADM +
+    rpad(i). For every batched pass: each exchange writes each slot once
+    and reads each written slot once, and a half-warp's 16 accesses fall
+    on 16 distinct 8-byte bank pairs. Global memory: a half-warp's pass-0
+    loads and launch 1's stores are 16 adjacent elements, launch 2's
+    stores whole 32-byte sectors, and every bin is stored once. Shared
+    memory within a block's 227 KB."""
+    n1, n2 = FOUR_STEP[nfft]
+    zeros = torch.zeros
+    # launch 1: columns
+    p, c = _cols_plan(n1)
+    th = n1 // p
+    tw = torch.ones(n1 // 2, dtype=torch.complex128)
+    _, k1, exchanges = _reg_fft_model(zeros(n1, dtype=torch.complex128), tw,
+                                      p=p)
+    assert len(exchanges) == len(_radices(n1)) - 1
+    assert sorted(k1.ravel().tolist()) == list(range(n1))
+    b = torch.arange(c)
+    for wr, rd in exchanges:                      # (th, Q, R) point indices
+        # thread j*c + b: the column b fastest
+        aw = (wr[:, None] * c + b[:, None, None]).reshape(th * c, -1)
+        ar = (rd[:, None] * c + b[:, None, None]).reshape(th * c, -1)
+        assert sorted(aw.ravel().tolist()) == list(range(n1 * c))
+        assert sorted(ar.ravel().tolist()) == list(range(n1 * c))
+        assert _half_warps_distinct(aw) and _half_warps_distinct(ar)
+    bufs = 2 if 2 * n1 * c * 8 <= 64 * 1024 else 1
+    assert bufs * n1 * c * 8 <= 227 * 1024
+    # pass 0 loads x[n2*(d + r*n1/16) + c0 + b] and the last pass stores
+    # Y[k1][c0 + b]: a half-warp (one lane, 16 columns) is 16 adjacent
+    # elements
+    d = torch.arange(th)[:, None] + torch.arange(p // 16) * th
+    load = (n2 * (d[:, None, :, None] + torch.arange(16) * (n1 // 16))
+            + b[:, None, None]).reshape(th * c, -1)
+    store = (k1[:, None] * n2 + b[:, None, None]).reshape(th * c, -1)
+    for a in (load, store):
+        h = a.reshape(-1, 16, a.shape[1])
+        assert ((h - h[:, :1]) == torch.arange(16)[None, :, None]).all()
+    # launch 2: rows
+    p, g = _rows_plan(n2)
+    th = n2 // p
+    padm = n2 + n2 // 16
+    tw = torch.ones(n2 // 2, dtype=torch.complex128)
+    _, k2, exchanges = _reg_fft_model(zeros(n2, dtype=torch.complex128), tw,
+                                      p=p)
+    nth = g * th                                      # threads a block
+    assert len(exchanges) == len(_radices(n2)) - 1
+    rows = torch.arange(g)[:, None, None, None]
+    for wr, rd in exchanges:
+        # thread b*th + j: the lane fastest
+        aw = (rows * padm + _rpad(wr)[None]).reshape(g * th, -1)
+        ar = (rows * padm + _rpad(rd)[None]).reshape(g * th, -1)
+        assert sorted(aw.ravel().tolist()) == sorted(ar.ravel().tolist())
+        assert len(set(aw.ravel().tolist())) == g * n2
+        assert _half_warps_distinct(aw) and _half_warps_distinct(ar)
+    assert 2 * g * padm * 8 <= 227 * 1024
+    assert g * (n2 + 32 // g) * 4 <= 2 * g * padm * 8
+    d = torch.arange(th)[:, None] + torch.arange(p // 16) * th
+    load = (rows * n2 + d[None, :, :, None]
+            + torch.arange(16) * (n2 // 16)).reshape(g * th, -1)
+    h = load.reshape(-1, 16, load.shape[1])
+    assert ((h - h[:, :1]) == torch.arange(16)[None, :, None]).all()
+    # the transposed store: element e = thread + i*threads of group k10 to
+    # bin k10 + e mod g + n1*(e / g), fftshifted
+    e = torch.arange(nth)[:, None] + torch.arange(p) * nth
+    seen = torch.zeros(nfft, dtype=torch.int64)
+    for k10 in range(0, n1, g):
+        k = (k10 + e % g + n1 * (e // g) + nfft // 2) % nfft
+        seen[k.ravel()] += 1
+        sectors = (k.reshape(-1, 16, p) // 8)     # 32-byte sectors of floats
+        for hw in range(sectors.shape[0]):
+            for i in range(p):
+                assert len(set(sectors[hw, :, i].tolist())) == 16 * 4 // 32
+    assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("policy", ["array", "hop"])
-@pytest.mark.parametrize("nfft", ONE_BLOCK)
+@pytest.mark.parametrize("nfft", ONE_BLOCK + [32768])
 def test_reg_psd_model_matches_plain(nfft, policy):
-    """The model of reg_psd_kernel, with float32 twiddles and window as
-    the kernel reads them, against ops.plain.psd_torch (B1's and B3's
-    plain version) at the kernels' tolerance: gathered starts clamped at
-    both ends (B1, StartsArray) and t*hop (B3, StartsHop); welch over 3
-    segments, parity, float32 and int16 planes."""
+    """The model of reg_psd_kernel (the four-step split at 32768), with
+    float32 twiddles and window as the kernels read them, against
+    ops.plain.psd_torch (B1's and B3's plain version) at the kernels'
+    tolerance: gathered starts clamped at both ends (B1, StartsArray) and
+    t*hop (B3, StartsHop); welch over 3 segments, parity, float32 and int16
+    planes."""
     rng = np.random.default_rng(nfft)
     ntime, nsub = 3, 2
     for mode, nint, dtype in (("welch", 3, "float32"), ("parity", 2, "int16")):
@@ -596,6 +706,76 @@ def test_big_psd_plain_matches_pallas_kernel(mode, nint, contiguous):
                  nint=nint, mode=mode)
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=1e-9)
     assert big_cuda.big_psd_cuda.launches == before  # CPU: plain version
+
+
+@pytest.mark.parametrize("mode,nint", [("welch", 2), ("parity", 2)])
+def test_four_step_model_matches_pallas_big_kernel(mode, nint):
+    """The four-step split's model (fs_cols_kernel then fs_rows_kernel, step
+    for step, with the float32 window and twiddle tables the kernels read)
+    as B4's PSD against the JAX package's 65536-point kernel (interpret
+    mode) on gathered starts, at the tolerance the JAX package holds that
+    kernel to: rtol 2e-3, plus 1e-4 of the column's mean (a white-noise
+    bin's power is ~1/nfft)."""
+    nfft, ntime, nsub = 1 << 16, 2, 1
+    x, starts, _ = _planes(nfft, nint, ntime, nsub, "float32", seed=11)
+    kernel = make_pallas_sti_psd(nfft=nfft, nint=nint, mode=mode,
+                                 interpret=True)
+    want = np.asarray(kernel(jnp.asarray(x), jnp.asarray(starts)))
+    got = _reg_psd_model(torch.from_numpy(x), lambda t: starts[t], ntime,
+                         nfft=nfft, nint=nint, mode=mode, ref=1.0).numpy()
+    lim = 2e-3 * np.abs(want) + 1e-4 * want.mean(axis=-1, keepdims=True)
+    assert np.abs(got - want).max() > 0      # two computations, not one
+    assert (np.abs(got - want) <= lim).all(), np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("nfft,nint,ntime,cap_cols,want", [
+    (32768, 4, 10, 3, [3, 3, 3, 1]),   # B1 at 32768: chunks of 3 columns
+    (32768, 4, 7, 7, [7]),             # one chunk: the whole call
+    (1 << 20, 1, 3, 0, [1, 1, 1]),     # a column over the cap: one a chunk
+])
+def test_four_step_chunks_cover_columns(monkeypatch, nfft, nint, ntime,
+                                        cap_cols, want):
+    """The column chunks of big_cuda.four_step_psd (B4, and B1 at 32768),
+    with the launches recorded on the CPU: each chunk's workspace is at
+    most WORKSPACE_MAX_BYTES (at least one column), the launch pairs take
+    the columns once and in order, launch 2 writes each chunk's own rows
+    of the output, and each pair adds one to the caller's count. At the
+    default cap, B1 at 32768 x 4 with 1000 columns and two subchannels
+    takes 512 columns a chunk (1 GiB of workspace, not 2 GB)."""
+    nsub = 2
+    col = nsub * nint * nfft * 8
+    assert big_cuda.chunk_columns(1000, 2 * 4 * 32768 * 8,
+                                  big_cuda.WORKSPACE_MAX_BYTES) == 512
+    monkeypatch.setattr(big_cuda, "WORKSPACE_MAX_BYTES", cap_cols * col + 5)
+    calls = []
+
+    def cols(samples_pm, starts, nfft_, nseg, win, tw, work):
+        assert work.numel() * 4 <= max(col, big_cuda.WORKSPACE_MAX_BYTES)
+        calls.append(("cols", starts.clone()))
+
+    def rows(work, nsub_, n, nfft_, nseg, tw, inv_scale, out):
+        calls.append(("rows", n, out.data_ptr()))
+
+    monkeypatch.setattr(big_cuda, "launch_cols", cols)
+    monkeypatch.setattr(big_cuda, "launch_rows", rows)
+
+    def caller():
+        pass
+
+    caller.launches = 0
+    x = torch.zeros((2 * nsub, nfft * nint * ntime), dtype=torch.float32)
+    starts = torch.arange(ntime, dtype=torch.int32) * nfft * nint
+    out = big_cuda.four_step_psd(x, starts, nfft=nfft, nint=nint,
+                                 mode="welch", window=("kaiser", 1.7),
+                                 ref=1.0, counter=caller)
+    assert out.shape == (ntime, nsub, nfft)
+    assert [c[0] for c in calls] == ["cols", "rows"] * len(want)
+    assert [len(c[1]) for c in calls[0::2]] == want
+    assert torch.equal(torch.cat([c[1] for c in calls[0::2]]), starts)
+    c0 = np.cumsum([0] + want[:-1])
+    assert [c[1] for c in calls[1::2]] == want
+    assert [c[2] for c in calls[1::2]] == [out[i].data_ptr() for i in c0]
+    assert caller.launches == len(want)
 
 
 @pytest.mark.parametrize("spec", ["hann", "hamming", "blackman", "boxcar",
