@@ -33,6 +33,9 @@ drives the port's paths on the card, checking what comes out:
   default, a live tab at the 30 s window), its plots recorded;
 - filter_signal over a 30 s, 1 MS/s two-tone capture (58,592 frames of
   nfft 1024) against the same call on the CPU, and regenerate_signal;
+- the port's bench (pyspectrogram_tpu_torch.bench) at the JAX bench's
+  default shapes: every row of its --all suite, each with the launches of
+  its kernels, and its headline line;
 
 B1 and B3 are held to their plain version at every power of two from 256
 to 32768, and two calls of each to the same bits; the build's ptxas report
@@ -44,7 +47,8 @@ B2 is held bit for bit to its plain version on adversarial cubes too
 both sides of its tile/radix boundary, odd and even, a batch of 7), in
 each of its two designs. Then it times kernels, pushes, ticks and requests
 with CUDA events and the wall clock, and computes each kernel's bound (the
-least time an H100 needs to move its bytes or do its float32 operations)
+least time an H100 needs to move its bytes or do its float32 operations;
+the timing and bound helpers are the bench module's)
 beside the one PyTorch call that computes the same function where there is
 one (``torch.median``, ``torch.quantile``). Every phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the exit
@@ -59,11 +63,23 @@ for a Digital RF capture, without HDF5 files (the reader needs h5py).
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+
+from pyspectrogram_tpu_torch.bench import (
+    card_of,
+    device_ms,
+    event_ms,
+    in_turns,
+    median_bound,
+    psd_bound,
+    read_counts,
+    reset_counts,
+    traced_device_ms,
+    wall_ms,
+)
 
 #: linear-power tolerance of a kernel against its plain version (the JAX
 #: package's own kernel-vs-XLA tolerance)
@@ -75,32 +91,6 @@ B4_RTOL, B4_MEAN_ATOL = 2e-3, 1e-4
 #: display colour range of the streaming tiles (dBFS): full-scale tones and
 #: their sidelobes, with the floor above the captures' noise
 COLOR_RANGE_DB = (-80.0, 0.0)
-
-
-#: an H100 SXM's published peaks at 700 W (NVIDIA's data sheet): HBM
-#: bandwidth and float32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-
-
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the least time for work that moves ``nbytes``
-    (each input read once, each output written once) and does ``flops``
-    float32 operations, the larger of the two times on an H100."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def psd_bound(inputs, out, nfft: int, n_transforms: int):
-    """Bound of a PSD kernel: its input tensors read and its output written
-    once; per transform 5 N log2 N for the FFT plus 7 N for the window,
-    |X|^2, the Welch sum and the scale."""
-    import math
-
-    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, out))
-    return bound(nbytes, n_transforms * (5 * nfft * math.log2(nfft)
-                                         + 7 * nfft))
 
 
 def kernel_resources(build_log: str, kernel: str):
@@ -198,12 +188,6 @@ def four_step_launch_ms(samples_pm, starts, nfft: int, nint: int,
             "pair_ms": event_ms(pair, iters=iters)}
 
 
-def median_bound(p, out):
-    """Bound of B2: the cube read once, the medians written once, one
-    comparison per element."""
-    return bound((p.numel() + out.numel()) * 4, p.numel())
-
-
 def fft_alone_ms(samples_pm, starts, nfft: int, frame_len: int, iters=20):
     """torch.fft.fft over the same windowed complex frames a PSD kernel
     transforms (frames built outside the timing): the FFT alone, for
@@ -268,122 +252,6 @@ def long_two_tone(n: int, noise_rms: float, seed: int):
     noise *= np.float32(noise_rms / np.sqrt(2.0))
     x += noise.view(np.complex64)[..., 0]
     return x
-
-
-def event_ms(fn, iters=50, warm=5):
-    """Mean device ms per call over ``iters`` calls, by CUDA events."""
-    import torch
-
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
-
-
-def device_trace(fn, iters=20, tries=5, expect=None):
-    """(mean device ms per call, device events in the trace) of what ``fn``
-    runs on the card (kernels, memsets), summed from a torch.profiler trace
-    of ``iters`` calls: the work itself, without the host's gaps between
-    calls that event_ms also counts when the host launches slower than the
-    card finishes.
-
-    A trace now and then comes back without a device event, or, late in a
-    long process, without some of them (seen on an H100: 33 of B4's 40
-    launches), and then reads low. Such a trace is taken again, up to
-    ``tries`` traces in all, until one holds a device event, or, with
-    ``expect`` (the device events the calls make), that many. When none
-    does the result is (None, the most events a trace held) and a note
-    goes to stderr."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    most = 0
-    for attempt in range(1, tries + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = Path(tmp) / "trace.json"
-            prof.export_chrome_trace(str(path))
-            events = json.loads(path.read_text())["traceEvents"]
-        dev = [float(e.get("dur", 0.0)) for e in events
-               if e.get("cat") in ("kernel", "gpu_memset")]
-        most = max(most, len(dev))
-        if sum(dev) > 0 and len(dev) >= (expect or 1):
-            return sum(dev) / 1e3 / iters, len(dev)
-        print(f"chip_smoke: trace {attempt} of {tries} held {len(dev)} "
-              f"device events of {expect or 'some'}", file=sys.stderr,
-              flush=True)
-    print("chip_smoke: device_ms is null: no trace held the device time",
-          file=sys.stderr, flush=True)
-    return None, most
-
-
-def device_ms(fn, iters=20, tries=5):
-    """device_trace's mean device ms per call, or None. The number is
-    context beside the CUDA-event ``ms``, which every kernel entry has, so
-    a missing trace does not fail the run."""
-    return device_trace(fn, iters, tries)[0]
-
-
-def in_turns(plain_fn, kernel_fn, iters=50):
-    """plain, kernel, kernel, plain on one card: (kernel, plain) ms."""
-    t = [event_ms(plain_fn, iters), event_ms(kernel_fn, iters),
-         event_ms(kernel_fn, iters), event_ms(plain_fn, iters)]
-    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-
-
-def wall_ms(fn, n=100, warm=5):
-    """(p50, p90) wall ms per call."""
-    import numpy as np
-
-    walls = []
-    for i in range(n + warm):
-        t0 = time.perf_counter()
-        fn()
-        if i >= warm:
-            walls.append(time.perf_counter() - t0)
-    return [float(v) for v in np.percentile(walls, [50, 90]) * 1e3]
-
-
-def _wrappers():
-    from pyspectrogram_tpu_torch.kernels import (
-        big_cuda,
-        median_cuda,
-        stream_cuda,
-        sti_cuda,
-    )
-
-    return {"sti_psd": sti_cuda.sti_psd_cuda,
-            "median": median_cuda.median_over_time_cuda,
-            "stream_psd": stream_cuda.stream_psd_cuda,
-            "big_psd": big_cuda.big_psd_cuda}
-
-
-def reset_counts() -> None:
-    """Set every kernel's launch count to 0 (just before a path runs)."""
-    for fn in _wrappers().values():
-        fn.launches = 0
-    _wrappers()["median"].batched_launches = 0
-
-
-def read_counts() -> dict:
-    """Launches per kernel, plus B2's launches over a batch of requests
-    (``median_batched``, also counted in ``median``)."""
-    counts = {k: fn.launches for k, fn in _wrappers().items()}
-    counts["median_batched"] = _wrappers()["median"].batched_launches
-    return counts
 
 
 def add_counts(total: dict, run: dict) -> None:
@@ -1825,6 +1693,73 @@ def phase_gui(dev, card, ds_written, ds_live, tones, tmp,
     return total
 
 
+#: the launch counters each bench row must move (kernels.*'s counters, as
+#: read_counts names them); every other counter must stay at 0. The xla
+#: rows run torch.fft and B2 alone; B4 takes the PSD at nfft 65536
+BENCH_ROW_KERNELS = {
+    **{f"sti/{n}/auto/{m}": {"sti_psd", "median"} for n in (1024, 4096)
+       for m in ("welch", "parity")},
+    **{f"sti/65536/auto/{m}": {"big_psd", "median"}
+       for m in ("welch", "parity")},
+    **{f"sti/{n}/xla/{m}": {"median"} for n in (1024, 4096, 65536)
+       for m in ("welch", "parity")},
+    "stream/4096/exact": {"sti_psd"},
+    "stream/4096/overlap2048": {"stream_psd"},
+    "display/4096/refresh": {"sti_psd"},
+    "mtab/7/display": {"sti_psd", "median", "median_batched"},
+}
+
+
+def phase_bench(dev, card, program_ms: float) -> dict:
+    """The port's bench (pyspectrogram_tpu_torch.bench) on the card at the
+    JAX bench's default shapes (nint 4, ntime 128, nsub 2): every row of
+    run_all, each present with finite positive numbers and launches that
+    show its kernels (BENCH_ROW_KERNELS), then main's headline line, whose
+    p50_ms is printed beside phase 5's device_program_ms at the same shape
+    (no check between them). Returns the phase's launch counts."""
+    import contextlib
+    import io
+    import math
+
+    import torch
+
+    from pyspectrogram_tpu_torch import bench
+
+    args = bench.build_parser().parse_args(["--device", str(dev)])
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = bench.run_all(args, dev)
+    headline = io.StringIO()
+    with contextlib.redirect_stdout(headline):
+        rc = bench.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    run = read_counts()
+    seconds = time.perf_counter() - t0
+    check([r["key"] for r in rows] == list(bench.ROW_KEYS),
+          f"bench: rows {[r['key'] for r in rows]}")
+    for row in rows:
+        nums = {k: v for k, v in row.items() if k not in ("key", "launches")}
+        check(nums and all(isinstance(v, (int, float)) and math.isfinite(v)
+                           and v > 0 for v in nums.values()),
+              f"bench: row {row['key']} holds {nums}")
+        want, got = BENCH_ROW_KERNELS[row["key"]], row["launches"]
+        check(all(got[k] > 0 for k in want)
+              and all(v == 0 for k, v in got.items() if k not in want),
+              f"bench: row {row['key']} launched {got}, expected {want}")
+        emit({"phase": "bench_row", **row, "card": card})
+    check(rc == 0, f"bench: main returned {rc}")
+    head = json.loads(headline.getvalue().strip().splitlines()[-1])
+    check(head["metric"] == "sti_throughput_c64_nfft4096"
+          and head["card"] == card
+          and all(math.isfinite(head[k]) and head[k] > 0
+                  for k in ("value", "p50_ms", "stream_p50_ms")),
+          f"bench: headline {head}")
+    emit({"phase": "bench_headline", **head,
+          "timing_headline_device_program_ms": program_ms,
+          "rows": len(rows), "seconds": seconds, "launches": run})
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -1847,12 +1782,7 @@ def main() -> int:
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     # phase 1: the card and the build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
-    check(smi.returncode == 0 and card, f"nvidia-smi failed: {smi.stderr}")
+    card = card_of(dev)
     print(card, flush=True)
     t0 = time.perf_counter()
     _build.library()
@@ -2103,7 +2033,8 @@ def main() -> int:
                              b2_ms=b2_ms, b2_plain_ms=b2_plain_ms,
                              b2_library_ms=b2_lib_ms,
                              b2_library_bit_equal=b2_lib_equal,
-                             b2_bound=b2_bound)
+                             b2_bound=b2_bound,
+                             device_program_ms=program_ms)
         emit({"phase": f"timing_{label}", "card": card,
               "nfft": cfg.nfft, "nint": cfg.nint, "ntime": cfg.ntime,
               "nsub": 2, "samples_per_request": n_proc,
@@ -2155,7 +2086,7 @@ def main() -> int:
             "phase": f"timing_b1_nfft{nfft}", "card": card, "nfft": nfft,
             "nint": nint, "ntime": ntime, "nsub": 2, "b1_max_abs_err": err,
             "b1_ms": b1_big_ms, "b1_plain_ms": b1_big_plain_ms,
-            "b1_device_ms": device_trace(
+            "b1_device_ms": traced_device_ms(
                 lambda: sti_cuda.sti_psd_cuda(xd, sd, **psd_kw),
                 expect=20 * (2 if nfft > sti_cuda.ONE_BLOCK_MAX_NFFT
                              else 1))[0],
@@ -2204,7 +2135,7 @@ def main() -> int:
         # calls made (a trace that drops kernel events reads low)
         chunks = -(-ntime // big_cuda.chunk_columns(
             ntime, 2 * nint * nfft * 8, big_cuda.WORKSPACE_MAX_BYTES))
-        dev_ms, dev_events = device_trace(
+        dev_ms, dev_events = traced_device_ms(
             lambda: big_cuda.big_psd_cuda(xd, sd, **psd_kw),
             expect=2 * chunks * 20)
         b4[nfft] += (fft_alone_ms(xd, sd, nfft, nfft * nint),
@@ -2222,6 +2153,12 @@ def main() -> int:
               "b4_launches_traced": 2 * chunks * 20,
               **four_step_launch_ms(xd, sd, nfft, nint),
               "b4_samples_per_s": n_proc / (b4[nfft][0] * 1e-3)})
+
+    # the port's bench at the JAX bench's default shapes: every row, then
+    # the headline line (last, so that its thousands of launches precede
+    # no profiler trace of the phases above)
+    add_counts(launches, phase_bench(
+        dev, card, timing["headline"]["device_program_ms"]))
 
     head = timing["headline"]
     bat = b2_batched[(7, 100, 1, 1024)]

@@ -18,21 +18,22 @@ card. A first line gives ptxas's registers and spill bytes of the
 register-pass PSD kernel per nfft (fresh builds only). Each shape prints one
 JSON line: CUDA-event ms per call over
 back-to-back calls, the profiler's device ms (null when no trace held a
-device event), the bound (chip_smoke.bound) and the card's name and power
-limit. To compare a change with its parent, unpack the parent into a
-directory that .gitignore lists and run, in one command, parent, change,
-change, parent. Needs a CUDA device; imports torch, numpy and the port.
+device event), the bound and the card's name and power limit. The timing
+and bound helpers are those of DIR's bench module
+(pyspectrogram_tpu_torch.bench), and chip_smoke.py's ptxas and four-step
+helpers are DIR's own where DIR holds chip_smoke.py, so DIR's port must
+have the bench module. To compare a change
+with its parent, unpack the parent into a directory that .gitignore lists
+and run, in one command, parent, change, change, parent. Needs a CUDA
+device; imports torch, numpy and the port.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
-
-import chip_smoke
 
 HERE = Path(__file__).resolve().parent
 
@@ -47,6 +48,9 @@ def four_step_launches(torch, big_cuda, sti_cuda, gen, dev, label, card,
     chunks of half the card's L2; the profiler's device ms and device
     events over 5 and over 20 calls of the wrapper, beside the launches
     those calls made."""
+    import chip_smoke
+    from pyspectrogram_tpu_torch import bench
+
     x = torch.randn((4, nfft * nint * ntime), generator=gen, device=dev)
     sd = torch.arange(ntime, dtype=torch.int32, device=dev) * nfft * nint
     kw = dict(nfft=nfft, nint=nint, mode="welch")
@@ -59,24 +63,24 @@ def four_step_launches(torch, big_cuda, sti_cuda, gen, dev, label, card,
     line = {"tree": label, "kernel": "four_step",
             "shape": [nfft, nint, ntime, 2], **launches,
             "chunk_columns": chunk,
-            "wrapper_ms": chip_smoke.event_ms(lambda: wrapper(x, sd, **kw),
-                                              iters=20),
+            "wrapper_ms": bench.event_ms(lambda: wrapper(x, sd, **kw),
+                                         iters=20),
             "half_l2_bytes": half_l2,
             "half_l2_chunk_columns": big_cuda.chunk_columns(
                 ntime, col_bytes, half_l2)}
     saved = big_cuda.WORKSPACE_MAX_BYTES
     big_cuda.WORKSPACE_MAX_BYTES = half_l2
     try:
-        line["wrapper_half_l2_ms"] = chip_smoke.event_ms(
+        line["wrapper_half_l2_ms"] = bench.event_ms(
             lambda: wrapper(x, sd, **kw), iters=20)
-        line["device_ms_half_l2"] = chip_smoke.device_ms(
+        line["device_ms_half_l2"] = bench.device_ms(
             lambda: wrapper(x, sd, **kw))
     finally:
         big_cuda.WORKSPACE_MAX_BYTES = saved
     n_chunks = -(-ntime // chunk)
     for iters in (5, 20):
-        ms, events = chip_smoke.device_trace(lambda: wrapper(x, sd, **kw),
-                                             iters=iters)
+        ms, events = bench.traced_device_ms(lambda: wrapper(x, sd, **kw),
+                                            iters=iters)
         line[f"device_ms_{iters}"] = ms
         line[f"device_events_{iters}"] = events
         line[f"launches_{iters}"] = 2 * n_chunks * iters
@@ -98,6 +102,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_times: torch sees no CUDA device", file=sys.stderr)
         return 1
+    import chip_smoke
+    from pyspectrogram_tpu_torch import bench
     from pyspectrogram_tpu_torch.kernels import (
         big_cuda,
         median_cuda,
@@ -111,10 +117,7 @@ def main() -> int:
     if tree not in mod.parents:
         raise RuntimeError(f"kernel_times: imported {mod}, not from {tree}")
     _build.library()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else None
+    card = bench.card_of("cuda")
     label = args.label or tree.name
     # ptxas's registers and spills of the register-pass kernel and of the
     # four-step split's two launches, per nfft (empty when the library came
@@ -138,8 +141,8 @@ def main() -> int:
         torch.cuda.synchronize()
         print(json.dumps({
             "tree": label, "kernel": kernel, "shape": shape,
-            "ms": chip_smoke.event_ms(fn),
-            "device_ms": chip_smoke.device_ms(fn),
+            "ms": bench.event_ms(fn),
+            "device_ms": bench.device_ms(fn),
             "bound_ms": bound[0], "bound_by": bound[1], "card": card}),
             flush=True)
 
@@ -151,18 +154,18 @@ def main() -> int:
         p = sti_cuda.sti_psd_cuda(x, sd, **kw)
         emit("sti_psd", [nfft, nint, ntime, 2],
              lambda: sti_cuda.sti_psd_cuda(x, sd, **kw),
-             chip_smoke.psd_bound((x, sd), p, nfft, ntime * 2 * nint))
+             bench.psd_bound((x, sd), p, nfft, ntime * 2 * nint))
         if nfft == 4096:
             med = median_cuda.median_over_time_cuda(p)
             emit("median", list(p.shape),
                  lambda: median_cuda.median_over_time_cuda(p),
-                 chip_smoke.median_bound(p, med))
+                 bench.median_bound(p, med))
     k, hop, nfft = 8, 2048, 4096
     buf = torch.randn((4, nfft - hop + k * hop), generator=gen, device=dev)
     got = stream_cuda.stream_psd_cuda(buf, nfft=nfft, hop=hop)
     emit("stream_psd", [nfft, 1, k, 2, hop],
          lambda: stream_cuda.stream_psd_cuda(buf, nfft=nfft, hop=hop),
-         chip_smoke.psd_bound((buf,), got, nfft, k * 2))
+         bench.psd_bound((buf,), got, nfft, k * 2))
     for nfft, nint, ntime in ((1 << 16, 4, 32), (1 << 20, 1, 16)):
         x = torch.randn((4, nfft * nint * ntime), generator=gen, device=dev)
         sd = torch.arange(ntime, dtype=torch.int32, device=dev) * nfft * nint
@@ -170,7 +173,7 @@ def main() -> int:
         p = big_cuda.big_psd_cuda(x, sd, **kw)
         emit("big_psd", [nfft, nint, ntime, 2],
              lambda: big_cuda.big_psd_cuda(x, sd, **kw),
-             chip_smoke.psd_bound((x, sd), p, nfft, ntime * 2 * nint))
+             bench.psd_bound((x, sd), p, nfft, ntime * 2 * nint))
         del x, p
     if hasattr(big_cuda, "launch_cols"):
         for nfft, nint, ntime in ((1 << 15, 4, 16), (1 << 16, 4, 32),

@@ -15,7 +15,7 @@ The same subcommands, flags and JSON lines as pyspectrogram_tpu's ``pstpu``
               (+ optional WAV regeneration)
   gui       — the interactive viewer
   synth     — generate a synthetic tone/chirp/noise capture
-  bench     — not ported yet: prints a JSON error
+  bench     — the STI throughput benchmark (pyspectrogram_tpu_torch.bench)
 
 One flag is added: ``--device`` on every command that computes ("cuda" by
 default, or e.g. "cpu", "cuda:1"). With no CUDA device and no ``--device``,
@@ -429,10 +429,19 @@ def cmd_gui(args) -> int:
     return gui_mod.main(args.device)
 
 
+@_on_device
 def cmd_bench(args) -> int:
-    print(json.dumps({"error": "the port has no bench yet: pstpu-torch "
-                               "bench waits for it (ROADMAP Queue 1 item 5)"}))
-    return 1
+    """The port's STI throughput (bench.bench_sti) at --nfft/--nint/--ntime
+    on ``--device``: the JAX command's keys plus the card's name and power
+    limit."""
+    from pyspectrogram_tpu_torch import bench
+
+    sps, p50, p99 = bench.bench_sti(nfft=args.nfft, nint=args.nint,
+                                    ntime=args.ntime, iters=args.iters,
+                                    device=args.device)
+    print(json.dumps({"samples_per_sec": sps, "p50_s": p50, "p99_s": p99,
+                      "card": bench.card_of(args.device)}))
+    return 0
 
 
 #: synth --dtype choices: the float default plus the raw integer layouts
@@ -621,11 +630,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=sorted(SYNTH_DTYPES))
     p.set_defaults(fn=cmd_synth)
 
-    p = sub.add_parser("bench", help="throughput benchmark (not ported yet)")
+    p = sub.add_parser("bench", help="throughput benchmark")
     p.add_argument("--nfft", type=int, default=4096)
     p.add_argument("--nint", type=int, default=4)
     p.add_argument("--ntime", type=int, default=128)
-    p.add_argument("--iters", type=int, default=50)
+    p.add_argument("--iters", type=int, default=None,
+                   help="calls per reading (default: enough for 20 ms)")
+    _add_device(p)
     p.set_defaults(fn=cmd_bench)
     return ap
 

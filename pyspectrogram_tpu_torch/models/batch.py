@@ -63,7 +63,7 @@ def make_batched_sti_fn_pm(
     mode: str = "welch",
     window: WindowSpec = ("kaiser", 1.7),
     eps: float = 1e-15,
-    impl: str = "auto",
+    fft_impl: str = "auto",
     precision: str = "exact",
     tile=None,
 ):
@@ -81,9 +81,11 @@ def make_batched_sti_fn_pm(
 
     Returns {"sxx_dbfs": (B, ntime, nsub, nfft), "sxx_med_dbfs": (B, nsub,
     nfft)}, or with ``tile`` {"tile": (B, ntime, nsub, plot_n) uint8,
-    "sxx_med_dbfs": ...}.
+    "sxx_med_dbfs": ...}. ``fft_impl`` is the JAX package's "auto", "xla"
+    or "pallas" (ops.stft.pick_impl).
     """
-    stft.check_knobs(nfft=nfft, mode=mode, precision=precision, impl=impl)
+    stft.check_knobs(nfft=nfft, mode=mode, precision=precision,
+                     fft_impl=fft_impl)
     frame_len = nfft * nint
     psd_kw = dict(nfft=nfft, nint=nint, mode=mode, window=window, ref=1.0)
 
@@ -99,7 +101,8 @@ def make_batched_sti_fn_pm(
             raise ValueError(
                 f"expected merged length {B * ntime * frame_len}, got {ltot}")
         starts = stft.hop_starts(B * ntime, frame_len, samples_merged.device)
-        p = stft.sti_psd(samples_merged, starts, impl=impl, **psd_kw)
+        p = stft.sti_psd(samples_merged, starts, fft_impl=fft_impl,
+                         **psd_kw)
         p = p.reshape(B, ntime, nsub, nfft) * inv[:, None, None, None]
         out = {"sxx_med_dbfs": to_dbfs(stft.median_over_time_batched(p),
                                        eps)}

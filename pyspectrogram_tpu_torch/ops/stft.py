@@ -230,21 +230,22 @@ def median_over_time_batched(p: torch.Tensor) -> torch.Tensor:
     return torch.stack([median_over_time(pb) for pb in p])
 
 
-def pick_impl(nfft: int, device, impl: str = "auto") -> str:
+def pick_impl(nfft: int, device, fft_impl: str = "auto") -> str:
     """'cuda' | 'torch' — the PSD dispatch policy, the port's counterpart
-    of sti_pallas.pick_impl. "auto" takes kernel B1 (B4 at nfft >= 65536)
-    for a CUDA device and an nfft the kernels cover
-    (kernels.sti_cuda.supported: every power of two 256..2^20), torch.fft
-    otherwise. An explicit "cuda" is an ask, not a hint: outside the
-    kernel's range it raises (on a CPU tensor the kernel's wrapper runs
-    its plain version)."""
-    if impl == "torch":
+    of sti_pallas.pick_impl, over the JAX package's ``fft_impl`` values.
+    "auto" takes kernel B1 (B4 at nfft >= 65536) for a CUDA device and an
+    nfft the kernels cover (kernels.sti_cuda.supported: every power of two
+    256..2^20), torch.fft otherwise; "xla" is torch.fft (cuFFT on a card).
+    An explicit "pallas", the hand-written kernel, is an ask, not a hint:
+    outside the kernel's range it raises (on a CPU tensor the kernel's
+    wrapper runs its plain version)."""
+    if fft_impl == "xla":
         return "torch"
-    if impl == "cuda":
+    if fft_impl == "pallas":
         sti_cuda.check_supported(nfft)
         return "cuda"
-    if impl != "auto":
-        raise ValueError(f"unknown impl {impl!r}")
+    if fft_impl != "auto":
+        raise ValueError(f"unknown fft_impl {fft_impl!r}")
     if torch.device(device).type == "cuda" and sti_cuda.supported(nfft):
         return "cuda"
     return "torch"
@@ -273,22 +274,24 @@ def stream_impl(nfft: int, nint: int, hop: int, device) -> str:
     return "sti"
 
 
-def check_knobs(*, nfft: int, mode: str, precision: str, impl: str) -> None:
-    """Raise on a mode, precision tier or PSD impl no STI function takes
-    (an explicit impl="cuda" outside the kernels' nfft range included)."""
+def check_knobs(*, nfft: int, mode: str, precision: str,
+                fft_impl: str) -> None:
+    """Raise on a mode, precision tier or ``fft_impl`` no STI function
+    takes (an explicit fft_impl="pallas" outside the kernels' nfft range
+    included)."""
     if mode not in ("parity", "welch"):
         raise ValueError(f"mode must be 'parity' or 'welch', got {mode!r}")
     if precision not in ("exact", "balanced", "display"):
         raise ValueError(f"unknown precision {precision!r}")
-    pick_impl(nfft, "cpu", impl)
+    pick_impl(nfft, "cpu", fft_impl)
 
 
 def sti_psd(samples_pm: torch.Tensor, starts: torch.Tensor, *,
-            impl: str = "auto", **psd_kw) -> torch.Tensor:
+            fft_impl: str = "auto", **psd_kw) -> torch.Tensor:
     """Fftshifted linear power (ntime, nsub, nfft) of the frames at
     ``starts``, by :func:`pick_impl`: kernel B1 (B4 at nfft >= 65536) or
     ops.plain.psd_torch. ``psd_kw``: nfft, nint, mode, window, ref."""
-    if pick_impl(psd_kw["nfft"], samples_pm.device, impl) == "cuda":
+    if pick_impl(psd_kw["nfft"], samples_pm.device, fft_impl) == "cuda":
         return sti_cuda.sti_psd_cuda(samples_pm, starts, **psd_kw)
     return psd_torch(samples_pm, starts, **psd_kw)
 
@@ -327,7 +330,7 @@ def make_sti_fn_pm(
     window: WindowSpec = ("kaiser", 1.7),
     ref: float = 1.0,
     eps: float = 1e-15,
-    impl: str = "auto",
+    fft_impl: str = "auto",
     return_linear: bool = False,
     return_minmax: bool = False,
     contiguous: bool = False,
@@ -352,9 +355,11 @@ def make_sti_fn_pm(
     every block the pipeline assembles does; the buffer must then hold
     ntime such frames. ``precision`` is accepted for every tier: the
     float32 kernel meets all three (exact ~1e-5 dB, balanced ~7e-4 dB,
-    display ~0.12 dB).
+    display ~0.12 dB). ``fft_impl`` takes the JAX package's values, as
+    :func:`pick_impl` reads them: "auto", "xla" (torch.fft) or "pallas"
+    (the hand-written kernel, which raises outside its nfft range).
     """
-    check_knobs(nfft=nfft, mode=mode, precision=precision, impl=impl)
+    check_knobs(nfft=nfft, mode=mode, precision=precision, fft_impl=fft_impl)
     default_qp = None if tile is None else tile.qparams
     psd_kw = dict(nfft=nfft, nint=nint, mode=mode, window=window, ref=ref)
 
@@ -362,7 +367,7 @@ def make_sti_fn_pm(
                qparams=None) -> dict:
         if contiguous and samples_pm.shape[1] < starts.shape[0] * nfft * nint:
             raise ValueError("buffer shorter than ntime contiguous frames")
-        p = sti_psd(samples_pm, starts, impl=impl, **psd_kw)
+        p = sti_psd(samples_pm, starts, fft_impl=fft_impl, **psd_kw)
         p_med = median_over_time(p)
         out = {"sxx_med_dbfs": to_dbfs(p_med, eps)}
         if tile is not None:

@@ -1,6 +1,7 @@
 """The port's pstpu-torch CLI (``--device cpu``) against the JAX package's
 pstpu on the same captures: the flows of tests/test_cli.py without the
-bench.py ones.
+bench.py ones (tests/test_torch_bench.py holds the port's bench), and
+``bench``'s JSON keys.
 
 Tolerances (ROADMAP Queue 3): frame axes, shapes, counts and file layouts
 equal; dB within 1e-4 dB on bins within 60 dB of each column's peak (the
@@ -336,16 +337,22 @@ def test_gui_headless_errors_as_json(capsys):
     assert rc == 1 and "PyQt5" in res["error"]
 
 
-def test_bench_is_not_ported_yet(capsys):
-    rc, res = _run(capsys, cli.main, "bench")
-    assert rc == 1 and "no bench" in res["error"]
+def test_bench_prints_the_jax_keys(capsys):
+    """pstpu-torch bench runs the port's bench_sti and prints the keys of
+    the JAX command (clients/cli.py of the JAX package) plus the card."""
+    rc, res = _run(capsys, cli.main, "bench", "--nfft", "256", "--nint", "1",
+                   "--ntime", "4", "--iters", "2", *DEV)
+    assert rc == 0
+    assert set(res) == {"samples_per_sec", "p50_s", "p99_s", "card"}
+    assert res["card"] == "cpu"
+    assert res["samples_per_sec"] > 0 and 0 < res["p50_s"] <= res["p99_s"]
 
 
 @pytest.mark.parametrize("argv", [
     ("sti", "D"), ("psd", "D"), ("sti-batch", "D", "D"), ("stream", "D"),
     ("watch", "D"), ("filter", "D", "--out", "x", "--kind", "lowpass",
                      "--cutoff", "1"), ("resume", "S"), ("gui",),
-    ("sti", "D", "--device", "cuda")])
+    ("sti", "D", "--device", "cuda"), ("bench",)])
 def test_no_cuda_is_a_json_error(argv, capsys):
     """Without a CUDA device a computing command prints a JSON error and
     exits 1 before it touches its arguments: it never carries on on the

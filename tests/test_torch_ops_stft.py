@@ -313,8 +313,8 @@ def test_to_dbfs_matches_jax():
     (128, "cuda", "auto", "torch"),      # below the kernel's floor
     (1000, "cuda", "auto", "torch"),     # not a power of two
     (4096, "cpu", "auto", "torch"),
-    (4096, "cuda", "torch", "torch"),
-    (4096, "cpu", "cuda", "cuda"),       # the wrapper runs the plain version
+    (4096, "cuda", "xla", "torch"),      # the JAX package's XLA FFT: torch.fft
+    (4096, "cpu", "pallas", "cuda"),     # the wrapper runs the plain version
 ])
 def test_pick_impl_table(nfft, device, impl, want):
     assert stft.pick_impl(nfft, torch.device(device), impl) == want
@@ -323,9 +323,58 @@ def test_pick_impl_table(nfft, device, impl, want):
 @pytest.mark.parametrize("nfft", [128, 1000, 1 << 21])
 def test_pick_impl_explicit_cuda_outside_range_raises(nfft):
     with pytest.raises(ValueError, match="covers power-of-two"):
-        stft.pick_impl(nfft, torch.device("cuda"), "cuda")
+        stft.pick_impl(nfft, torch.device("cuda"), "pallas")
     with pytest.raises(ValueError):
-        stft.make_sti_fn_pm(nfft=nfft, impl="cuda")
+        stft.make_sti_fn_pm(nfft=nfft, fft_impl="pallas")
+
+
+def test_unknown_fft_impl_raises():
+    """The port's own names for the two routes are not fft_impl values."""
+    for v in ("cuda", "torch", "gemm"):
+        with pytest.raises(ValueError, match="unknown fft_impl"):
+            stft.make_sti_fn_pm(nfft=256, fft_impl=v)
+
+
+@pytest.mark.parametrize("fft_impl", ["auto", "xla"])
+def test_sti_fn_pm_fft_impl_matches_jax(fft_impl):
+    """make_sti_fn_pm takes the JAX package's fft_impl: each value gives
+    the JAX function's output with the same value on the same input (on
+    the CPU both packages run their FFT library: "auto" is "xla" there)."""
+    x, starts, ref = _planes(1024, 2, 40, 2, "float32", seed=11)
+    kw = dict(nfft=1024, nint=2, mode="welch", ref=ref, return_linear=True,
+              fft_impl=fft_impl)
+    want = jstft.make_sti_fn_pm(**kw)(jnp.asarray(x), jnp.asarray(starts))
+    got = stft.make_sti_fn_pm(**kw)(torch.from_numpy(x),
+                                    torch.from_numpy(starts))
+    assert set(got) == set(want)
+    np.testing.assert_allclose(got["sxx"].numpy(), np.asarray(want["sxx"]),
+                               **LIN)
+    np.testing.assert_allclose(got["sxx_med"].numpy(),
+                               np.asarray(want["sxx_med"]), **LIN)
+    _assert_db_close(got["sxx_dbfs"].numpy(), want["sxx_dbfs"], want["sxx"])
+    _assert_db_close(got["sxx_med_dbfs"].numpy(), want["sxx_med_dbfs"],
+                     want["sxx_med"])
+
+
+@pytest.mark.parametrize("name", ["make_sti_fn_pm", "make_batched_sti_fn_pm"])
+def test_factories_take_every_jax_keyword(name):
+    """The port's STI factories accept every keyword of their JAX
+    counterparts, so a call written for the JAX package runs on the port."""
+    import inspect
+
+    from pyspectrogram_tpu.models import batch as jbatch
+    from pyspectrogram_tpu_torch.models import batch
+
+    port = {"make_sti_fn_pm": stft.make_sti_fn_pm,
+            "make_batched_sti_fn_pm": batch.make_batched_sti_fn_pm}[name]
+    ref = {"make_sti_fn_pm": jstft.make_sti_fn_pm,
+           "make_batched_sti_fn_pm": jbatch.make_batched_sti_fn_pm}[name]
+    want = inspect.signature(ref).parameters
+    got = inspect.signature(port).parameters
+    assert set(want) <= set(got)
+    for k, p in want.items():
+        assert got[k].kind == p.kind, k
+        assert got[k].default == p.default, k
 
 
 def test_wrappers_refuse_other_devices():
