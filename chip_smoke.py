@@ -33,6 +33,15 @@ drives the port's paths on the card, checking what comes out:
   default, a live tab at the 30 s window), its plots recorded;
 - filter_signal over a 30 s, 1 MS/s two-tone capture (58,592 frames of
   nfft 1024) against the same call on the CPU, and regenerate_signal;
+- the mesh tier on torch.distributed: a 1x1 mesh over NCCL in this
+  process, then four ranks spawned on the one card over gloo (a 2x2 mesh,
+  the distributed FFT on 4x1), each running StiPipeline(mesh=) at the
+  headline (float and display tile), make_batched_sti_fn_mesh over 7
+  requests, the distributed FFT at 2^20, the big-FFT STI at 2^18 and the
+  summed-bisection median against the one-device run, the 2x2 results
+  against the 1x1 ones, and every rank's B1/B2 launches; the 1x1 phase
+  also holds make_sti_fn(fft_impl="gemm") to a float64 FFT with TF32
+  allowed;
 - the port's bench (pyspectrogram_tpu_torch.bench) at the JAX bench's
   default shapes: every row of its --all suite, each with the launches of
   its kernels, and its headline line;
@@ -1693,6 +1702,439 @@ def phase_gui(dev, card, ds_written, ds_live, tones, tmp,
     return total
 
 
+#: the mesh phases' request shapes: the headline (nfft 4096, nint 4, ntime
+#: 128, two subchannels), a batch of 7 requests at the reference default's
+#: nfft 1024 over 100 columns, the distributed FFT at the reference's 2^20
+#: ceiling, and the big-FFT STI at 2^18 (nint 1, 16 columns, two
+#: subchannels); every input is made from a seed, the same on every rank
+MESH_SR = 1_000_000
+MESH_BATCH = dict(B=7, nfft=1024, ntime=100, nsub=2)
+MESH_DIST_NFFT = 1 << 20
+MESH_BIG = dict(nfft=1 << 18, nint=1, ntime=16, nsub=2)
+#: the column-sharded pipeline at 2^18 takes 40 columns: at 32 or fewer
+#: the time median is the sorting network, not kernel B2
+MESH_BIG_PIPELINE = dict(MESH_BIG, ntime=40)
+#: the big-FFT STI against the one-device program (the JAX package's own
+#: big-FFT tolerance, tests/test_big_sti.py), and the distributed and GEMM
+#: FFTs against a reference FFT, as a fraction of its largest |X|
+BIG_DB_ATOL = 2e-2
+FFT_REL_ATOL = 1e-4
+MESH_RANKS = 4
+
+
+def mesh_dir() -> Path:
+    """build/mesh of this checkout: the FileStore of the NCCL phase and the
+    results the one-card 2x2 phase compares with."""
+    return Path(__file__).resolve().parent / "build" / "mesh"
+
+
+def counted(fn):
+    """(fn(), the launches it made): the counts set to 0 just before the
+    call and read just after it, on a synchronised card."""
+    import torch
+
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def mesh_paths(mesh, fft_mesh, dev) -> tuple:
+    """The mesh paths on this rank, each against the one-device run on the
+    same card and the same inputs:
+
+    (a) StiPipeline(mesh=).compute() at the headline, float and display
+        tile (column sharding: B1 per shard, B2 after the gather);
+    (b) make_batched_sti_fn_mesh over 7 requests (B1, batched B2);
+    (c) make_distributed_fft at 2^20 on ``fft_mesh``'s time axis;
+    (d) make_bigfft_sti_fn at 2^18, float and tile;
+    (g) StiPipeline(mesh=).compute() at 2^18 x 1 x 40 with nsub 2, which
+        divides over chan: column sharding, B4 per shard, B2 after the
+        gather;
+    (f) ops.stft.median_over_time_psum of a time-sharded cube, bit for bit
+        against np.median.
+
+    Returns ({name: host array} of the mesh results, {path: CUDA-event ms
+    of the mesh call and of the solo one, launches, errors}, the launches
+    of all mesh calls)."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch import SpectrogramConfig
+    from pyspectrogram_tpu_torch.display.tile import make_tile_spec
+    from pyspectrogram_tpu_torch.io.memory import MemoryDataset
+    from pyspectrogram_tpu_torch.models import batch, sti
+    from pyspectrogram_tpu_torch.ops import stft
+    from pyspectrogram_tpu_torch.parallel import big_sti, dist_fft
+    from pyspectrogram_tpu_torch.parallel import mesh as pmesh
+    from pyspectrogram_tpu_torch.parallel.mesh import TIME_AXIS
+
+    res, line = {}, {}
+    total = {k: 0 for k in read_counts()}
+
+    def path(name: str, run: dict, mesh_ms: float, solo_ms: float, **kw):
+        add_counts(total, run)
+        line[name] = {"ms": mesh_ms, "solo_ms": solo_ms, "launches": run,
+                      **kw}
+
+    # (a) the headline request through the pipeline
+    tones = [MESH_SR / 16.0, MESH_SR / 8.0]
+    ds = MemoryDataset(two_tone(128 * 4096 * 4, MESH_SR, tones,
+                                noise_rms=1e-3, seed=1), MESH_SR)
+    headline = SpectrogramConfig(nfft=4096, nint=4, ntime=128)
+    for label, cfg in (("a_headline", headline),
+                       ("a_display_tile", headline.replace(
+                           display_tile=True))):
+        pipe = sti.StiPipeline(ds, cfg, dev, mesh=mesh)
+        solo = sti.StiPipeline(ds, cfg, dev)
+        got, run = counted(pipe.compute)
+        want = solo.compute()
+        key = "tile" if cfg.display_tile else "sxx_dbfs"
+        for f in (key, "sxx_med_dbfs"):
+            res[f"{label}_{f}"] = getattr(got, f)
+        check(np.array_equal(got.frame_starts, want.frame_starts)
+              and np.array_equal(got.mask, want.mask),
+              f"{label}: frame axes differ from the one-device request")
+        bit_equal = all(np.array_equal(getattr(got, f), getattr(want, f))
+                        for f in (key, "sxx_med_dbfs"))
+        d_med = db_diff(got.sxx_med_dbfs, want.sxx_med_dbfs, axis=0)
+        err = {"bit_equal": bit_equal, "max_db_diff_med": d_med}
+        if cfg.display_tile:
+            err["tile_pixels_off"] = check_tiles(got.tile, want.tile, label)
+        else:
+            err["max_db_diff"] = db_diff(got.sxx_dbfs, want.sxx_dbfs, axis=0)
+        check(max(v for k, v in err.items() if k.startswith("max_db"))
+              <= 1e-3, f"{label}: the mesh request differs from the "
+                       f"one-device one: {err}")
+        path(label, run, event_ms(pipe.compute, iters=5, warm=1),
+             event_ms(solo.compute, iters=5, warm=1), **err)
+
+    # (g) the pipeline at 2^18: nsub divides over chan, so the request
+    # column-shards with kernel B4 on each shard and B2 after the gather
+    # (the tier a meshed request takes at big nfft; (d) is the one taken
+    # when nsub does not divide)
+    big = SpectrogramConfig(nfft=MESH_BIG_PIPELINE["nfft"],
+                            nint=MESH_BIG_PIPELINE["nint"],
+                            ntime=MESH_BIG_PIPELINE["ntime"])
+    ds_big = MemoryDataset(two_tone(big.nfft * big.nint * big.ntime, MESH_SR,
+                                    tones, noise_rms=1e-3, seed=2), MESH_SR)
+    pipe = sti.StiPipeline(ds_big, big, dev, mesh=mesh)
+    solo = sti.StiPipeline(ds_big, big, dev)
+    check(not pipe._use_bigfft(big, MESH_BIG_PIPELINE["nsub"]),
+          "g_pipeline_big: the pipeline picks the distributed FFT")
+    got, run = counted(pipe.compute)
+    check(run["big_psd"] > 0 and run["median"] > 0,
+          f"g_pipeline_big: launched B4 {run['big_psd']}x, "
+          f"B2 {run['median']}x")
+    want = solo.compute()
+    for f in ("sxx_dbfs", "sxx_med_dbfs"):
+        res[f"g_pipeline_big_{f}"] = getattr(got, f)
+    err = {"bit_equal": all(np.array_equal(getattr(got, f), getattr(want, f))
+                            for f in ("sxx_dbfs", "sxx_med_dbfs")),
+           "max_db_diff": db_diff(got.sxx_dbfs, want.sxx_dbfs),
+           "max_db_diff_med": db_diff(got.sxx_med_dbfs, want.sxx_med_dbfs)}
+    check(max(err["max_db_diff"], err["max_db_diff_med"]) <= 1e-3,
+          f"g_pipeline_big: the mesh request differs from the one-device "
+          f"one: {err}")
+    path("g_pipeline_big", run, event_ms(pipe.compute, iters=3, warm=1),
+         event_ms(solo.compute, iters=3, warm=1), **err)
+
+    # (b) 7 requests merged over the time axis
+    B, nfft, ntime, nsub = (MESH_BATCH[k] for k in ("B", "nfft", "ntime",
+                                                    "nsub"))
+    fn = batch.make_batched_sti_fn_mesh(mesh, nfft=nfft, ntime=ntime, B=B)
+    rng = np.random.default_rng(21)
+    merged = np.zeros((2 * nsub, fn.padded_cols * nfft), np.float32)
+    merged[:, :B * ntime * nfft] = rng.standard_normal(
+        (2 * nsub, B * ntime * nfft))
+    inv = (1.0 / np.arange(1, B + 1) ** 2).astype(np.float32)
+    local = torch.from_numpy(np.ascontiguousarray(pmesh.local_shard(
+        merged, mesh, fn.input_specs()[0]))).to(dev)
+    out, run = counted(lambda: fn(local, inv))
+    got = {k: pmesh.assemble(v, mesh, fn.output_specs[k]).cpu().numpy()
+           for k, v in out.items()}
+    got["sxx_dbfs"] = got["sxx_dbfs"][:B * ntime].reshape(B, ntime, nsub,
+                                                         nfft)
+    solo_fn = batch.make_batched_sti_fn_pm(nfft=nfft, ntime=ntime)
+    xd = torch.from_numpy(merged[:, :B * ntime * nfft]).to(dev)
+    want = {k: v.cpu().numpy() for k, v in solo_fn(xd, inv).items()}
+    for k in got:
+        res[f"b_{k}"] = got[k]
+    err = {"bit_equal": all(np.array_equal(got[k], want[k]) for k in got),
+           "max_db_diff": max(db_diff(got[k], want[k], 30.0) for k in got)}
+    check(err["max_db_diff"] <= 1e-3, f"b_batch: {err}")
+    path("b_batch", run, event_ms(lambda: fn(local, inv), iters=10, warm=2),
+         event_ms(lambda: solo_fn(xd, inv), iters=10, warm=2), **err)
+
+    # (c) the distributed 4-step FFT at 2^20
+    fft = dist_fft.make_distributed_fft(fft_mesh, TIME_AXIS, MESH_DIST_NFFT)
+    n1, n2 = fft.n1n2
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal(MESH_DIST_NFFT)
+         + 1j * rng.standard_normal(MESH_DIST_NFFT)).astype(np.complex64)
+    planes = [torch.from_numpy(np.ascontiguousarray(pmesh.local_shard(
+        a, fft_mesh, fft.input_spec))).to(dev)
+        for a in (x.real.reshape(n1, n2), x.imag.reshape(n1, n2))]
+    (xr, xi), run = counted(lambda: fft(*planes))
+    xr, xi = (pmesh.assemble(v, fft_mesh, sp).cpu().numpy()
+              for v, sp in zip((xr, xi), fft.output_specs))
+    got = (dist_fft.reference_order(xr)
+           + 1j * dist_fft.reference_order(xi)).astype(np.complex64)
+    xd = torch.from_numpy(x).to(dev)
+    want = torch.fft.fft(xd).cpu().numpy()
+    res["c_fft"] = got
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    check(rel <= FFT_REL_ATOL, f"c_dist_fft: max error {rel} of max |X|")
+    path("c_dist_fft", run, event_ms(lambda: fft(*planes), iters=10),
+         event_ms(lambda: torch.fft.fft(xd), iters=10),
+         max_err_of_max_abs=rel, n1n2=[n1, n2])
+
+    # (d) the big-FFT STI at 2^18, float and display tile
+    nfft, nint, ntime, nsub = (MESH_BIG[k] for k in ("nfft", "nint",
+                                                     "ntime", "nsub"))
+    rng = np.random.default_rng(8)
+    pm = (0.3 * rng.standard_normal((2 * nsub, ntime * nfft))).astype(
+        np.float32)
+    pd = torch.from_numpy(pm).to(dev)
+    sd = stft.hop_starts(ntime, nfft, dev)
+    freqs = stft.shifted_freqs(nfft, MESH_SR)
+    spec = make_tile_spec(freqs, (-200.0, 200.0), (-80.0, -20.0))
+    for label, tile in (("d_bigfft", None), ("d_bigfft_tile", spec)):
+        fn = big_sti.make_bigfft_sti_fn(mesh, TIME_AXIS, nfft=nfft,
+                                        nint=nint, tile=tile)
+        n1, n2 = fn.n1n2
+        frames = np.ascontiguousarray(
+            pm.reshape(nsub, 2, ntime, nfft).transpose(2, 0, 1, 3))
+        x2 = big_sti.frames_to_x2(frames, nfft, fn.nseg, n1, n2)
+        local = torch.from_numpy(np.ascontiguousarray(pmesh.local_shard(
+            x2, mesh, fn.input_spec))).to(dev)
+        args = (local,) if tile is None else (local, spec.qparams)
+        out, run = counted(lambda: fn(*args))
+        got = {k: v.cpu().numpy() if k == "tile" else big_sti.to_freq_order(
+            pmesh.assemble(v, mesh, fn.output_specs[k]).cpu().numpy())
+            for k, v in out.items()}
+        solo_fn = stft.make_sti_fn_pm(nfft=nfft, nint=nint, contiguous=True,
+                                      tile=tile)
+        want = {k: v.cpu().numpy() for k, v in solo_fn(pd, sd).items()}
+        for k in got:
+            res[f"{label}_{k}"] = got[k]
+        err = {"max_db_diff_med": float(np.abs(
+            got["sxx_med_dbfs"] - want["sxx_med_dbfs"]).max())}
+        if tile is None:
+            err["max_db_diff"] = float(np.abs(
+                got["sxx_dbfs"] - want["sxx_dbfs"]).max())
+        else:
+            err["tile_pixels_off"] = check_tiles(got["tile"], want["tile"],
+                                                 label)
+        check(max(v for k, v in err.items() if k.startswith("max_db"))
+              <= BIG_DB_ATOL, f"{label}: {err}")
+        path(label, run, event_ms(lambda: fn(*args), iters=5, warm=1),
+             event_ms(lambda: solo_fn(pd, sd), iters=5, warm=1), **err)
+
+    # (f) the summed-bisection median of a time-sharded cube
+    rng = np.random.default_rng(5)
+    p = rng.exponential(size=(128, 2, 4096)).astype(np.float32)
+    local = torch.from_numpy(np.ascontiguousarray(pmesh.local_shard(
+        p, mesh, (TIME_AXIS, None, None)))).to(dev)
+    med, run = counted(lambda: stft.median_over_time_psum(
+        local, mesh, TIME_AXIS, ntime_valid=128))
+    check(np.array_equal(med.cpu().numpy(), np.median(p, axis=0)),
+          "f_psum_median: not np.median bit for bit")
+    path("f_psum_median", run, event_ms(lambda: stft.median_over_time_psum(
+        local, mesh, TIME_AXIS, ntime_valid=128), iters=5, warm=1),
+        event_ms(lambda: stft.median_over_time(torch.from_numpy(p).to(dev)),
+                 iters=5, warm=1), bit_equal_np_median=True)
+    return res, line, total
+
+
+def gemm_dft_path(dev) -> dict:
+    """(e) make_sti_fn(fft_impl="gemm") at the headline against
+    fft_impl="xla", and the GEMM DFT of 64 of its frames against a float64
+    numpy FFT, with the caller's TF32 switch on; a complex64 GEMM DFT under
+    the same switch shows what TF32 would cost."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch.kernels import gemm_fft
+    from pyspectrogram_tpu_torch.ops import stft
+
+    nfft, nint, ntime = 4096, 4, 128
+    rng = np.random.default_rng(31)
+    x = (rng.standard_normal((nfft * nint * ntime, 2))
+         + 1j * rng.standard_normal((nfft * nint * ntime, 2))).astype(
+        np.complex64)
+    xd = torch.from_numpy(x).to(dev)
+    sd = torch.arange(ntime, dtype=torch.int32, device=dev) * nfft * nint
+    kw = dict(nfft=nfft, nint=nint, return_linear=True)
+    gemm, xla = (stft.make_sti_fn(fft_impl=f, **kw) for f in ("gemm", "xla"))
+    frames = xd[: 64 * nfft, 0].reshape(64, nfft)
+    want = np.fft.fft(frames.cpu().numpy().astype(np.complex128))
+    plan = gemm_fft.make_plan(nfft)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True   # a caller allowing TF32
+    try:
+        got, want_sti = gemm(xd, sd), xla(xd, sd)
+        big = gemm_fft.make_gemm_fft(nfft)(frames).cpu().numpy()
+        d1, d2, tw = (torch.from_numpy((r + 1j * i).astype(np.complex64)).to(
+            dev) for r, i in ((plan.d1r, plan.d1i), (plan.d2r, plan.d2i),
+                              (plan.twr, plan.twi)))
+        c64 = torch.matmul(torch.matmul(d1, frames.reshape(
+            64, plan.n1, plan.n2)) * tw, d2).transpose(-1, -2).reshape(
+            64, nfft).cpu().numpy()
+        gemm_ms = event_ms(lambda: gemm(xd, sd), iters=10)
+        xla_ms = event_ms(lambda: xla(xd, sd), iters=10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    scale = np.abs(want).max()
+    rel = float(np.abs(big - want).max() / scale)
+    check(rel <= FFT_REL_ATOL, f"e_gemm: max error {rel} of max |X|")
+    check(torch.allclose(got["sxx"], want_sti["sxx"], **LIN),
+          "e_gemm: the GEMM STI disagrees with the torch.fft one by "
+          f"{(got['sxx'] - want_sti['sxx']).abs().max().item()}")
+    return {"ms": gemm_ms, "solo_ms": xla_ms, "max_err_of_max_abs": rel,
+            "complex64_tf32_err_of_max_abs": float(
+                np.abs(c64 - want).max() / scale),
+            "sxx_max_abs_diff_vs_xla": (
+                got["sxx"] - want_sti["sxx"]).abs().max().item()}
+
+
+def check_mesh_launches(run: dict, what: str) -> None:
+    check(run["sti_psd"] > 0 and run["median"] > 0
+          and run["median_batched"] > 0 and run["big_psd"] > 0,
+          f"{what}: launched B1 {run['sti_psd']}x, B2 {run['median']}x, "
+          f"batched B2 {run['median_batched']}x, B4 {run['big_psd']}x")
+
+
+def phase_mesh_1x1_nccl(dev, card) -> dict:
+    """The mesh paths on a 1x1 mesh over NCCL in this process (the device
+    transport; every axis has one rank, so no collective is called) and
+    the GEMM DFT; saves the results under build/mesh for the 2x2 phase.
+    Returns the launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pyspectrogram_tpu_torch.parallel import make_mesh
+
+    d = mesh_dir()
+    if d.exists():
+        shutil.rmtree(d)
+    d.mkdir(parents=True)
+    # bind this process's card before the mesh ("cuda" is the current one)
+    torch.cuda.set_device(torch.cuda.current_device() if dev.index is None
+                          else dev.index)
+    dist.init_process_group("nccl", store=dist.FileStore(str(d / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        mesh = make_mesh("cuda")
+        res, line, run = mesh_paths(mesh, mesh, dev)
+        line["e_gemm"] = gemm_dft_path(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    check_mesh_launches(run, "mesh_1x1_nccl")
+    np.savez(d / "mesh_1x1.npz", **res)
+    emit({"phase": "mesh_1x1_nccl", "card": card, "mesh": [1, 1],
+          "backend": "nccl", "seconds": seconds, "paths": line,
+          "launches": run})
+    return run
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_rank(rank: int, world: int, port: int, card: str) -> None:
+    """One rank of the one-card 2x2 phase (torch.multiprocessing, spawn):
+    gloo over localhost, every rank on cuda:0, the mesh paths on a 2x2
+    mesh and the distributed FFT on a 4x1 one. Rank 0 gathers every rank's
+    launches, compares with the 1x1 phase's results, prints the phase's
+    line and writes its launches under build/mesh."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pyspectrogram_tpu_torch.parallel import make_mesh
+    from pyspectrogram_tpu_torch.parallel import mesh as pmesh
+    from pyspectrogram_tpu_torch.parallel.mesh import TIME_AXIS
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=300))
+    try:
+        t0 = time.perf_counter()
+        mesh = make_mesh("cuda", 2, 2)
+        mesh41 = make_mesh("cuda", 4, 1)
+        dev = pmesh.mesh_device(mesh)
+        res, line, run = mesh_paths(mesh, mesh41, dev)
+        seconds = time.perf_counter() - t0
+        keys = sorted(run)
+        mine = torch.tensor([[run[k] for k in keys]], device=dev)
+        every = pmesh.all_gather(mine, mesh41, TIME_AXIS, dim=0).cpu()
+    finally:
+        dist.destroy_process_group()
+    if rank:
+        return
+    ranks = [dict(zip(keys, map(int, row))) for row in every.tolist()]
+    for r, counts in enumerate(ranks):
+        check_mesh_launches(counts, f"mesh_2x2_one_card rank {r}")
+    one = np.load(mesh_dir() / "mesh_1x1.npz")
+    vs = {}
+    for k, v in res.items():
+        w = one[k]
+        check(v.shape == w.shape, f"mesh_2x2 {k}: {v.shape} vs {w.shape}")
+        if v.dtype == np.uint8:
+            vs[k] = {"pixels_off": check_tiles(v, w, f"mesh_2x2 {k}")}
+            continue
+        diff = np.abs(v.astype(np.complex128) - w)
+        vs[k] = {"bit_equal": bool(np.array_equal(v, w)),
+                 "max_abs_diff": float(diff.max())}
+        if k == "c_fft":
+            # both against the same reference FFT, each within FFT_REL_ATOL
+            ok = diff.max() <= 2 * FFT_REL_ATOL * np.abs(w).max()
+        elif k.startswith("d_"):
+            ok = diff.max() <= BIG_DB_ATOL
+        else:
+            # dB of the column-sharded tiers: the linear powers at the
+            # standing kernel tolerance
+            ok = np.allclose(10.0 ** (v / 10.0), 10.0 ** (w / 10.0), **LIN)
+        check(ok, f"mesh_2x2 {k} differs from the 1x1 mesh's: {vs[k]}")
+    total = {k: sum(c[k] for c in ranks) for k in keys}
+    emit({"phase": "mesh_2x2_one_card", "card": card, "mesh": [2, 2],
+          "fft_mesh": [4, 1], "backend": "gloo", "ranks_on_one_card": world,
+          "seconds": seconds, "paths": line, "vs_mesh_1x1": vs,
+          "launches_by_rank": ranks, "launches": total})
+    (mesh_dir() / "mesh_2x2.json").write_text(json.dumps(total))
+
+
+def phase_mesh_2x2_one_card(card) -> dict:
+    """Four ranks spawned on the one card (mesh_rank); a rank's exception
+    fails the run, and ranks still running after 600 s are killed and fail
+    it. Returns the launches of every rank."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(mesh_rank, args=(MESH_RANKS, _free_port(), card),
+                             nprocs=MESH_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + 600
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            fail("mesh_2x2_one_card: ranks still running after 600 s")
+    return json.loads((mesh_dir() / "mesh_2x2.json").read_text())
+
+
 #: the launch counters each bench row must move (kernels.*'s counters, as
 #: read_counts names them); every other counter must stay at 0. The xla
 #: rows run torch.fft and B2 alone; B4 takes the PSD at nfft 65536
@@ -2153,6 +2595,11 @@ def main() -> int:
               "b4_launches_traced": 2 * chunks * 20,
               **four_step_launch_ms(xd, sd, nfft, nint),
               "b4_samples_per_s": n_proc / (b4[nfft][0] * 1e-3)})
+
+    # the mesh tier: a 1x1 mesh over NCCL in this process, then four ranks
+    # on the one card over gloo, a 2x2 mesh
+    add_counts(launches, phase_mesh_1x1_nccl(dev, card))
+    add_counts(launches, phase_mesh_2x2_one_card(card))
 
     # the port's bench at the JAX bench's default shapes: every row, then
     # the headline line (last, so that its thousands of launches precede

@@ -1,5 +1,6 @@
-"""Batched STI on one torch device: many same-shape requests in one launch
-— the port of pyspectrogram_tpu/models/batch.py without the mesh tier.
+"""Batched STI: many same-shape requests in one launch — the port of
+pyspectrogram_tpu/models/batch.py, on one torch device or, with a mesh,
+over the ranks of a torch.distributed group (:func:`make_batched_sti_fn_mesh`).
 
 B requests with identical shape knobs (nfft, nint, ntime, nsub, mode,
 window) fold into one PSD launch and one median launch:
@@ -21,6 +22,7 @@ and dB cube, this module calls the PSD itself (ops.stft.sti_psd).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -44,7 +46,10 @@ from pyspectrogram_tpu_torch.models.sti import (
 )
 from pyspectrogram_tpu_torch.ops import stft
 from pyspectrogram_tpu_torch.ops.plain import to_dbfs
-from pyspectrogram_tpu_torch.ops.windows import WindowSpec
+from pyspectrogram_tpu_torch.ops.windows import WindowSpec, get_window
+from pyspectrogram_tpu_torch.parallel import mesh as pmesh
+from pyspectrogram_tpu_torch.parallel import sharded
+from pyspectrogram_tpu_torch.parallel.mesh import CHAN_AXIS, TIME_AXIS
 from pyspectrogram_tpu_torch.utils.config import resolve_time_span
 
 #: batches of at least this many sample bytes assemble request by request
@@ -117,20 +122,106 @@ def make_batched_sti_fn_pm(
     return batched
 
 
+@functools.lru_cache(maxsize=32)
+def make_batched_sti_fn_mesh(
+    mesh,
+    *,
+    nfft: int,
+    nint: int = 1,
+    ntime: int,
+    B: int,
+    mode: str = "welch",
+    window: WindowSpec = ("kaiser", 1.7),
+    eps: float = 1e-15,
+    fft_impl: str = "auto",
+    precision: str = "exact",
+):
+    """B same-shape requests sharded over the mesh ``time`` axis — the port
+    of make_batched_sti_fn_mesh (models/batch.py:152 of the JAX package).
+
+    The merged (B*ntime)-column buffer is a time-shardable axis, so the
+    samples shard too: each rank holds only its own column range, and
+    plane-row pairs shard over ``chan``. Each column is scaled by its own
+    request's dBFS reference; the per-request medians gather the linear
+    powers over ``time`` once and run kernel B2 over the batch, or, above
+    parallel.sharded.GATHERED_MEDIAN_MAX_BYTES, the summed bisection over
+    each request's column span.
+
+    Returned ``f(samples_local, inv_ref_sq)`` on this rank's shards
+    (``f.input_specs()``):
+      samples_local: this rank's block of the (nsub*2, padded_cols*frame_len)
+                     plane-major buffer, columns packed at t'*frame_len,
+                     request b at [b*ntime, (b+1)*ntime), zero-padded to
+                     ``f.padded_cols`` columns (a time-axis multiple);
+      inv_ref_sq:    (B,) float32 per-request 1/ref^2, replicated.
+    Returns this rank's shards (``f.output_specs``):
+    {"sxx_dbfs": (padded_cols, nsub, nfft) sharded (time, chan),
+     "sxx_med_dbfs": (B, nsub, nfft) sharded (chan,)}.
+    """
+    ndev_t = pmesh.axis_size(mesh, TIME_AXIS)
+    frame_len = nfft * nint
+    total_cols = B * ntime
+    padded_cols = pmesh.pad_to_multiple(total_cols, ndev_t)
+    local_cols = padded_cols // ndev_t
+    stft.check_knobs(nfft=nfft, mode=mode, precision=precision,
+                     fft_impl=fft_impl)
+    get_window(window, nfft)  # validate the spec eagerly
+    psd_kw = dict(nfft=nfft, nint=nint, mode=mode, window=window, ref=1.0)
+    # column t' belongs to request t' // ntime; padding columns clamp to
+    # the last request (they are dropped before the median anyway)
+    t0 = pmesh.axis_index(mesh, TIME_AXIS) * local_cols
+    b_idx = np.minimum((t0 + np.arange(local_cols)) // ntime, B - 1)
+
+    def local(samples_local: torch.Tensor, inv_ref_sq) -> dict:
+        dev = samples_local.device
+        starts = stft.hop_starts(local_cols, frame_len, dev)
+        p = stft.sti_psd(samples_local, starts, fft_impl=fft_impl,
+                         **psd_kw)               # (local_cols, nsub_l, nfft)
+        inv = np.asarray(inv_ref_sq, np.float32)[b_idx]
+        p = p * torch.from_numpy(inv).to(dev)[:, None, None]
+        cube = padded_cols * p.shape[1] * nfft * 4
+        if cube <= sharded.GATHERED_MEDIAN_MAX_BYTES:
+            p_all = pmesh.all_gather(p, mesh, TIME_AXIS, dim=0)
+            p_req = p_all[:total_cols].reshape(B, ntime, p.shape[1], nfft)
+            med = stft.median_over_time_batched(p_req)  # (B, nsub_l, nfft)
+        else:
+            # huge B*ntime: the summed bisection over each request's global
+            # column span — no rank gathers the cube
+            med = torch.stack([
+                stft.median_over_time_psum(
+                    p, mesh, TIME_AXIS, row_window=(b * ntime, (b + 1) * ntime))
+                for b in range(B)])
+        return {"sxx_dbfs": to_dbfs(p, eps), "sxx_med_dbfs": to_dbfs(med, eps)}
+
+    in_specs = ((CHAN_AXIS, TIME_AXIS), (None,))
+    local.input_specs = lambda: in_specs
+    local.output_specs = {"sxx_dbfs": (TIME_AXIS, CHAN_AXIS, None),
+                          "sxx_med_dbfs": (None, CHAN_AXIS, None)}
+    local.padded_cols = padded_cols
+    return local
+
+
 class BatchedStiPipeline:
     """Compute one STI per (dataset, channel) pair in one launch, on one
     torch device.
 
     All requests share one SpectrogramConfig's shape knobs; time spans,
     dBFS references and (in tile mode) colour ranges may differ per
-    request. ``device`` is required, as for models.sti.StiPipeline."""
+    request. ``device`` is required, as for models.sti.StiPipeline. With
+    ``mesh`` the merged columns (and the sample bytes) shard over the
+    mesh's ``time`` axis and subchannel plane pairs over ``chan``
+    (:func:`make_batched_sti_fn_mesh`); ``device`` must then be this
+    rank's mesh device."""
 
     def __init__(self, requests: Sequence, config,
-                 device: Union[str, torch.device]):
+                 device: Union[str, torch.device], mesh=None):
         """requests: sequence of (RFDataset, channel_entry_or_None)."""
         self.device = check_device(device)
+        if mesh is not None:
+            pmesh.check_mesh_device(mesh, self.device)
         self.requests = list(requests)
         self.config = config
+        self.mesh = mesh
 
     def compute(self, time_spans: Optional[Sequence] = None,
                 color_ranges: Optional[Sequence] = None,
@@ -145,6 +236,10 @@ class BatchedStiPipeline:
         ``refresh_bounds=False`` skips the per-request bounds refresh when
         the caller refreshed this cycle (runtime.scheduler)."""
         cfg = self.config
+        if cfg.display_tile and self.mesh is not None:
+            raise ValueError(
+                "display-tile batching is single-chip only (the mesh tier "
+                "reads back float spectra) — unset display_tile or mesh")
         frame_len = cfg.nfft * cfg.nint
         plans, refs, metas, specs = [], [], [], []
         nsub_each = []
@@ -201,31 +296,27 @@ class BatchedStiPipeline:
             masks[i] = col_mask
             return pm
 
-        est_bytes = 2 * nsub_each[0] * B * L * 4
-        if B > 1 and est_bytes >= BATCH_PREFETCH_MIN_BYTES:
-            merged = self._assemble_prefetch(produce, B, L)
+        inv_refs = np.asarray(refs, np.float32)
+        if self.mesh is not None:
+            sxx_b, med_b = self._compute_mesh(produce, B, L, nsub_each[0],
+                                              inv_refs)
         else:
-            # side-by-side merged layout, built on the host where the copy
-            # is unavoidable anyway; mixed storage dtypes (int16 with
-            # complex64) merge as float32, value-preserving
-            blocks = [produce(i) for i in range(B)]
-            dtypes = {b.dtype for b in blocks}
-            mdtype = blocks[0].dtype if len(dtypes) == 1 else np.float32
-            host = np.empty((blocks[0].shape[0], B * L), mdtype)
-            for b, blk in enumerate(blocks):
-                host[:, b * L:(b + 1) * L] = blk
-            merged = to_device(host, self.device)
-
-        fn = make_batched_sti_fn_pm(
-            nfft=cfg.nfft, nint=cfg.nint, ntime=cfg.ntime, mode=cfg.mode,
-            window=cfg.window, eps=cfg.eps, precision=cfg.precision,
-            tile=spec)
-        out = fn(merged, np.asarray(refs, np.float32), qparams)
-        if spec is not None:
-            tile_b = out["tile"].cpu().numpy()
-        else:
-            sxx_b = out["sxx_dbfs"].cpu().numpy()
-        med_b = out["sxx_med_dbfs"].cpu().numpy()
+            est_bytes = 2 * nsub_each[0] * B * L * 4
+            if B > 1 and est_bytes >= BATCH_PREFETCH_MIN_BYTES:
+                merged = self._assemble_prefetch(produce, B, L)
+            else:
+                merged = to_device(self._merge_host(produce, B, L, B * L),
+                                   self.device)
+            fn = make_batched_sti_fn_pm(
+                nfft=cfg.nfft, nint=cfg.nint, ntime=cfg.ntime, mode=cfg.mode,
+                window=cfg.window, eps=cfg.eps, precision=cfg.precision,
+                tile=spec)
+            out = fn(merged, inv_refs, qparams)
+            if spec is not None:
+                tile_b = out["tile"].cpu().numpy()
+            else:
+                sxx_b = out["sxx_dbfs"].cpu().numpy()
+            med_b = out["sxx_med_dbfs"].cpu().numpy()
 
         results = []
         for i, ((sr, n_st), col_mask) in enumerate(zip(metas, masks)):
@@ -249,6 +340,48 @@ class BatchedStiPipeline:
                 plot_freqs=plotf,
             ))
         return results
+
+    @staticmethod
+    def _merge_host(produce, B: int, L: int, width: int) -> np.ndarray:
+        """The side-by-side merged layout, built on the host where the copy
+        is unavoidable anyway, zero beyond B*L columns; mixed storage
+        dtypes (int16 with complex64) merge as float32, value-preserving."""
+        blocks = [produce(i) for i in range(B)]
+        dtypes = {b.dtype for b in blocks}
+        mdtype = blocks[0].dtype if len(dtypes) == 1 else np.float32
+        host = np.zeros((blocks[0].shape[0], width), mdtype)
+        for b, blk in enumerate(blocks):
+            host[:, b * L:(b + 1) * L] = blk
+        return host
+
+    def _compute_mesh(self, produce, B: int, L: int, nsub: int,
+                      inv_refs: np.ndarray):
+        """The mesh tier: every rank merges the whole batch on the host,
+        copies its own span to its device and runs
+        :func:`make_batched_sti_fn_mesh`; returns the gathered host
+        (B, ntime, nsub, nfft) dB spectra and (B, nsub, nfft) medians."""
+        cfg = self.config
+        chan = pmesh.axis_size(self.mesh, CHAN_AXIS)
+        if nsub % chan:
+            # an indivisible split would pair a sub's imag plane with the
+            # next sub's real plane on a shard — refuse
+            raise ValueError(
+                f"requests have {nsub} subchannel(s), which does not "
+                f"divide over the mesh's {chan}-way '{CHAN_AXIS}' "
+                f"axis — use a chan axis size that divides nsub (or 1)")
+        fn = make_batched_sti_fn_mesh(
+            self.mesh, nfft=cfg.nfft, nint=cfg.nint, ntime=cfg.ntime, B=B,
+            mode=cfg.mode, window=cfg.window, eps=cfg.eps,
+            precision=cfg.precision)
+        merged = self._merge_host(produce, B, L,
+                                  fn.padded_cols * cfg.nfft * cfg.nint)
+        local = pmesh.local_shard(merged, self.mesh, fn.input_specs()[0])
+        out = pmesh.assemble_outputs(
+            fn(to_device(local, self.device), inv_refs), self.mesh,
+            fn.output_specs)
+        sxx = out["sxx_dbfs"][: B * cfg.ntime].cpu().numpy()
+        return (sxx.reshape(B, cfg.ntime, nsub, cfg.nfft),
+                out["sxx_med_dbfs"].cpu().numpy())
 
     def _assemble_prefetch(self, produce, B: int, L: int) -> torch.Tensor:
         """The worker reads and packs request i+1 while this thread copies

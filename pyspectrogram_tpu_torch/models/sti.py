@@ -1,6 +1,6 @@
-"""STI pipeline on one torch device: one request -> (times, freqs, sxx_dbfs,
-sxx_med_dbfs) — the port of pyspectrogram_tpu/models/sti.py without the
-mesh tiers.
+"""STI pipeline: one request -> (times, freqs, sxx_dbfs, sxx_med_dbfs) — the
+port of pyspectrogram_tpu/models/sti.py, on one torch device or, with a
+mesh (parallel.make_mesh), over the ranks of a torch.distributed group.
 
   host:   pick channel + time window -> exact time->sample conversion ->
           coalesced HDF5 frame reads assembled into a compact plane-major
@@ -9,6 +9,11 @@ mesh tiers.
   device: window -> FFT -> |X|^2 -> (Welch avg) -> fftshift -> median ->
           dB or the uint8 display tile (ops.stft.make_sti_fn_pm)
   host:   per-column datetimes, fftshifted freqs, reference-layout views
+
+With a mesh every rank runs the same request (SPMD): the host read and
+assembly, then a copy of only its own span to its device, the sharded
+device half, and the gathered result, so every rank returns the JAX
+package's StiResult.
 
 The host helpers are numpy copies of the JAX package's models/sti.py (the
 port imports nothing of that package); tests pin them to the originals.
@@ -30,8 +35,13 @@ from pyspectrogram_tpu_torch.io.time_util import (
     samples_to_datetime64,
     time_to_sample,
 )
+from pyspectrogram_tpu_torch.kernels import sti_cuda
 from pyspectrogram_tpu_torch.native import ingest
 from pyspectrogram_tpu_torch.ops import stft
+from pyspectrogram_tpu_torch.parallel import big_sti
+from pyspectrogram_tpu_torch.parallel import mesh as pmesh
+from pyspectrogram_tpu_torch.parallel.mesh import CHAN_AXIS, TIME_AXIS
+from pyspectrogram_tpu_torch.parallel.sharded import make_sharded_sti_fn
 from pyspectrogram_tpu_torch.utils.config import (
     SpectrogramConfig,
     resolve_time_span,
@@ -187,19 +197,36 @@ def check_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
+#: with a mesh, transforms at or beyond this size may run as the
+#: distributed 4-step FFT (parallel.big_sti) instead of column sharding
+#: (the JAX package's threshold, models/sti.py:181)
+BIGFFT_THRESHOLD = 1 << 18
+
+
 class StiPipeline:
     """Reusable request executor over one dataset, on one torch device.
 
     ``device`` is required ("cuda", "cuda:0", "cpu", ...): there is no
     silent CPU fallback, and a CUDA device on a machine without one
-    raises here."""
+    raises here.
+
+    Pass ``mesh`` (parallel.make_mesh) to run each request over the ranks
+    of the process group; ``device`` must then be this rank's mesh device.
+    Below ``bigfft_threshold`` STI columns shard over ``time`` and
+    subchannels over ``chan`` (nsub must divide by the chan-axis size;
+    ntime pads automatically); at or above it see :meth:`_use_bigfft`."""
 
     def __init__(self, dataset: Optional[RFDataset],
                  config: SpectrogramConfig,
-                 device: Union[str, torch.device]):
+                 device: Union[str, torch.device], mesh=None,
+                 bigfft_threshold: int = BIGFFT_THRESHOLD):
         self.device = check_device(device)
+        if mesh is not None:
+            pmesh.check_mesh_device(mesh, self.device)
         self.ds = dataset
         self.config = config
+        self.mesh = mesh
+        self.bigfft_threshold = bigfft_threshold
         self._iteration = -1
 
     def channel_of(self, config: SpectrogramConfig) -> Tuple[str, Optional[int]]:
@@ -261,8 +288,10 @@ class StiPipeline:
         frame_len = cfg.nfft * cfg.nint
         nbytes = (2 if isub is not None else 2 * len(self.ds.chan_2sub[chan])
                   ) * cfg.ntime * frame_len * 4
-        if nbytes >= PREFETCH_MIN_BYTES:
-            # large request: overlap the host read/assembly with the copy
+        if self.mesh is None and nbytes >= PREFETCH_MIN_BYTES:
+            # large single-device request: overlap the host read/assembly
+            # with the copy; the mesh tiers copy per-rank spans of the
+            # whole block
             samples_pm, starts_rel, col_mask = assemble_device_block_prefetch(
                 self.ds, chan, isub, n_st, frame_len, self.device)
         else:
@@ -278,37 +307,50 @@ class StiPipeline:
         """The device half of :meth:`compute`: an assembled plane-major
         block (host array, or a tensor already on this pipeline's device)
         with its column starts ``starts_rel`` (t*frame_len), column mask
-        and absolute frame starts ``n_st`` -> StiResult."""
+        and absolute frame starts ``n_st`` -> StiResult. With a mesh the
+        block is the whole request's on every rank (a tensor is read back
+        first), and each rank copies only its own span to its device."""
         self._iteration += 1
-        if isinstance(samples_pm, torch.Tensor):
-            x = samples_pm.to(self.device)
-        else:
-            x = to_device(samples_pm, self.device)
-        starts = to_device(np.asarray(starts_rel, np.int32), self.device)
-
         freqs = stft.shifted_freqs(cfg.nfft, sr)
         spec = None
         if cfg.display_tile:
             # None (empty frequency window) falls back to the float path
             spec = make_tile_spec(freqs, cfg.freq_window_khz,
                                   cfg.color_range_db)
-        fn = stft.make_sti_fn_pm(
-            nfft=cfg.nfft, nint=cfg.nint, mode=cfg.mode, window=cfg.window,
-            ref=ref, eps=cfg.eps, precision=cfg.precision,
-            contiguous=True,  # the block packs column t at t*frame_len
-            tile=spec,        # display epilogue on the device
-        )
-        out = fn(x, starts)
+        if self.mesh is not None:
+            if isinstance(samples_pm, torch.Tensor):
+                samples_pm = samples_pm.cpu().numpy()
+            if self._use_bigfft(cfg, samples_pm.shape[0] // 2):
+                out = self._compute_bigfft(cfg, ref, samples_pm, spec)
+            else:
+                out = self._compute_sharded(cfg, ref, samples_pm,
+                                            starts_rel, spec)
+        else:
+            if isinstance(samples_pm, torch.Tensor):
+                x = samples_pm.to(self.device)
+            else:
+                x = to_device(samples_pm, self.device)
+            starts = to_device(np.asarray(starts_rel, np.int32), self.device)
+            fn = stft.make_sti_fn_pm(
+                nfft=cfg.nfft, nint=cfg.nint, mode=cfg.mode,
+                window=cfg.window, ref=ref, eps=cfg.eps,
+                precision=cfg.precision,
+                contiguous=True,  # the block packs column t at t*frame_len
+                tile=spec,        # display epilogue on the device
+            )
+            out = {k: v.cpu().numpy() for k, v in fn(x, starts).items()}
 
         tile = plot_freqs = None
         if spec is not None:
-            tile = out["tile"].cpu().numpy()[: cfg.ntime]
+            # every tier emits "tile" instead of "sxx_dbfs": the float
+            # spectra stay on the device
+            tile = out["tile"][: cfg.ntime]
             plot_freqs = tile_freqs(spec, freqs)
-            sxx_dbfs = None           # floats intentionally stay on device
+            sxx_dbfs = None
         else:
-            sxx_tm = out["sxx_dbfs"].cpu().numpy()[: cfg.ntime]
-            sxx_dbfs = stft.to_reference_layout(sxx_tm)
-        sxx_med_dbfs = np.moveaxis(out["sxx_med_dbfs"].cpu().numpy(), -1, 0)
+            # drop any time-axis padding the sharded tier added
+            sxx_dbfs = stft.to_reference_layout(out["sxx_dbfs"][: cfg.ntime])
+        sxx_med_dbfs = np.moveaxis(out["sxx_med_dbfs"], -1, 0)
         times = samples_to_datetime64(n_st, sr)  # (ntime,) datetime64[us]
         return StiResult(
             iteration=self._iteration,
@@ -322,3 +364,94 @@ class StiPipeline:
             tile=tile,
             plot_freqs=plot_freqs,
         )
+
+    def _use_bigfft(self, cfg: SpectrogramConfig, nsub: int) -> bool:
+        """Meshed-request tier choice (models/sti.py:367 of the JAX
+        package): the distributed-FFT tier pays one all-to-all per segment
+        while column sharding runs the PSD kernel per shard with no
+        collective, so it is taken at or above ``bigfft_threshold`` only
+        where column sharding cannot serve: the plane pairs do not divide
+        over the chan axis, or the kernels do not cover nfft.
+
+        Where the JAX package asks its fused kernel's VMEM budget
+        (sti_pallas.pallas_supported), the port asks its kernels' range
+        (kernels.sti_cuda.supported: every power of two 256..2^20, any
+        nsub, kernel B4 from 65536). So at 2^18 and up, where the JAX
+        package's budget fails (many subchannels per shard), the port
+        column-shards and the JAX package takes the distributed FFT; the
+        two agree when nsub does not divide over chan."""
+        if cfg.nfft < self.bigfft_threshold:
+            return False
+        if nsub % pmesh.axis_size(self.mesh, CHAN_AXIS):
+            return True
+        return not sti_cuda.supported(cfg.nfft)
+
+    def _compute_bigfft(self, cfg: SpectrogramConfig, ref: float,
+                        samples_pm: np.ndarray, spec=None) -> dict:
+        """Distributed-FFT tier: the per-column transform itself shards
+        over the mesh's ``time`` axis (parallel.big_sti). Each rank copies
+        its q-slice of the frames in their storage dtype (raw int16 planes
+        widen on its device); with ``spec`` only the uint8 tile and the
+        median leave the ranks' devices."""
+        fn = big_sti.make_bigfft_sti_fn(
+            self.mesh, TIME_AXIS, nfft=cfg.nfft, nint=cfg.nint,
+            mode=cfg.mode, window=cfg.window, ref=ref, eps=cfg.eps,
+            precision=cfg.precision,
+            tile=spec.crop_key() if spec is not None else None,
+        )
+        n1, n2 = fn.n1n2
+        nsub = samples_pm.shape[0] // 2
+        frame_len = cfg.nfft * cfg.nint
+        # (nsub*2, ntime*frame_len) -> (ntime, nsub, 2, nseg*nfft) frames
+        fp = samples_pm.reshape(nsub, 2, cfg.ntime, frame_len)
+        frames_pm = np.moveaxis(fp, 2, 0)[..., : fn.nseg * cfg.nfft]
+        x2 = big_sti.frames_to_x2(np.ascontiguousarray(frames_pm), cfg.nfft,
+                                  fn.nseg, n1, n2)
+        x2 = to_device(pmesh.local_shard(x2, self.mesh, fn.input_spec),
+                       self.device)
+        out = fn(x2) if spec is None else fn(x2, spec.qparams)
+        host = {}
+        for k, v in out.items():
+            if k == "tile":              # the same on every rank
+                host[k] = v.cpu().numpy()
+                continue
+            v = pmesh.assemble(v, self.mesh, fn.output_specs[k])
+            host[k] = big_sti.to_freq_order(v.cpu().numpy())
+        return host
+
+    def _compute_sharded(self, cfg: SpectrogramConfig, ref: float,
+                         samples_pm: np.ndarray, starts_rel: np.ndarray,
+                         spec=None) -> dict:
+        """Multi-rank request: columns shard over ``time``, subchannels
+        over ``chan`` (parallel.sharded). The block is packed at
+        t*frame_len, so this is the contiguous tier: the buffer shards
+        over both axes and each rank copies only its own span. With a
+        display ``spec`` each rank quantizes its own columns."""
+        chan = pmesh.axis_size(self.mesh, CHAN_AXIS)
+        nsub = samples_pm.shape[0] // 2
+        if nsub % chan:
+            # an indivisible split would pair a sub's imag plane with the
+            # next sub's real plane on a shard — refuse
+            raise ValueError(
+                f"channel has {nsub} subchannel(s), which does not divide "
+                f"over the mesh's {chan}-way '{CHAN_AXIS}' axis — use a "
+                f"chan axis size that divides nsub (or 1)")
+        frame_len = cfg.nfft * cfg.nint
+        samples_pm, padded, nvalid = pmesh.pad_contiguous_block(
+            samples_pm, len(starts_rel), frame_len,
+            pmesh.axis_size(self.mesh, TIME_AXIS))
+        fn = make_sharded_sti_fn(
+            self.mesh, nfft=cfg.nfft, nint=cfg.nint, ntime_valid=nvalid,
+            mode=cfg.mode, window=cfg.window, ref=ref, eps=cfg.eps,
+            precision=cfg.precision, contiguous=True,
+            tile=spec.crop_key() if spec is not None else None,
+        )
+        specs = fn.input_specs()
+        # samples_pm copies in its storage dtype: raw int16 planes widen
+        # per shard on the device
+        args = [to_device(pmesh.local_shard(a, self.mesh, sp), self.device)
+                for a, sp in zip((samples_pm, padded), specs)]
+        if spec is not None:
+            args.append(spec.qparams)
+        out = pmesh.assemble_outputs(fn(*args), self.mesh, fn.output_specs)
+        return {k: v.cpu().numpy() for k, v in out.items()}

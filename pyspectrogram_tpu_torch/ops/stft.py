@@ -13,14 +13,16 @@ columns follow :func:`stream_impl`, which adds kernel B3
 (kernels.stream_cuda) for overlapping hops. The median runs a Batcher
 network for n <= 32 and kernel B2
 (kernels.median_cuda) or its plain bisection above, for one request or,
-in :func:`median_over_time_batched`, a batch of them. Host constants — the
+in :func:`median_over_time_batched`, a batch of them; over a time axis
+sharded across ranks, :func:`median_over_time_psum`. Host constants — the
 window and the power scale — are built once in numpy float64, as the JAX
-package builds them, and cast to float32 on the device. No step uses a
-matrix product, so the TF32 switches of torch.backends do not apply.
+package builds them, and cast to float32 on the device.
 
 :func:`make_sti_fn` is the JAX package's time-major complex path
 ((nsamp, nsub) complex or packed planes, complex64 or complex128) with
-:func:`gather_frames` and :func:`psd_frames`; its FFT is torch.fft.
+:func:`gather_frames` and :func:`psd_frames`; its FFT is torch.fft, or the
+GEMM DFT of kernels.gemm_fft, the one matrix product here, which runs its
+matmuls in complex128 so that no TF32 setting reaches them.
 """
 
 from __future__ import annotations
@@ -34,7 +36,13 @@ import torch
 # the module, not the name: display.tile imports ops.plain, whose package
 # __init__ imports this module
 from pyspectrogram_tpu_torch.display import tile as display_tile
-from pyspectrogram_tpu_torch.kernels import median_cuda, stream_cuda, sti_cuda
+from pyspectrogram_tpu_torch.kernels import (
+    gemm_fft,
+    median_cuda,
+    stream_cuda,
+    sti_cuda,
+)
+from pyspectrogram_tpu_torch.ops import plain
 from pyspectrogram_tpu_torch.ops.plain import psd_torch, to_dbfs
 from pyspectrogram_tpu_torch.ops.windows import WindowSpec, get_window
 
@@ -124,20 +132,20 @@ def make_sti_fn(
     nsub, nfft) and ``sxx_med_dbfs`` (nsub, nfft), plus the linear ``sxx``
     and ``sxx_med`` with ``return_linear``. It runs on the samples' device;
     the median is :func:`median_over_time`, so a float32 cube on a card
-    launches kernel B2. ``fft_impl="xla"`` is torch.fft (cuFFT on a card);
-    the JAX package's ``"gemm"`` (its GEMM DFT, kernels/gemm_fft.py) is
-    not ported and raises. ``compute_dtype`` is torch.complex64 or
-    torch.complex128."""
+    launches kernel B2. ``fft_impl="xla"`` is torch.fft (cuFFT on a card),
+    ``"gemm"`` the GEMM DFT of kernels.gemm_fft (two matmuls and a
+    twiddle, in complex128 whatever the caller's TF32 setting).
+    ``compute_dtype`` is torch.complex64 or torch.complex128."""
     win = get_window(window, nfft)                # float64 on the host
     inv_scale = 1.0 / (float(win.sum()) ** 2 * float(ref) ** 2)
     frame_len = nfft * nint if mode == "welch" else nfft
     if mode not in ("parity", "welch"):
         raise ValueError(f"mode must be 'parity' or 'welch', got {mode!r}")
-    if fft_impl == "gemm":
-        raise ValueError("fft_impl='gemm' is the JAX package's GEMM DFT "
-                         "(pyspectrogram_tpu.kernels.gemm_fft), which the "
-                         "port does not have; use fft_impl='xla' (torch.fft)")
-    if fft_impl != "xla":
+    if fft_impl == "xla":
+        fft_fn = torch.fft.fft
+    elif fft_impl == "gemm":
+        fft_fn = gemm_fft.make_gemm_fft(nfft)
+    else:
         raise ValueError(f"unknown fft_impl {fft_impl!r}")
     if compute_dtype not in _COMPUTE_REAL:
         raise ValueError("compute_dtype must be torch.complex64 or "
@@ -151,9 +159,9 @@ def make_sti_fn(
         x = _to_complex(frames, real_dtype).to(compute_dtype)
         if mode == "welch":
             x = x.reshape(x.shape[0], x.shape[1], nint, nfft)
-            p = psd_frames(x, win, inv_scale).mean(dim=2)
+            p = psd_frames(x, win, inv_scale, fft_fn).mean(dim=2)
         else:
-            p = psd_frames(x, win, inv_scale)
+            p = psd_frames(x, win, inv_scale, fft_fn)
         p = torch.fft.fftshift(p, dim=-1)          # (ntime, nsub, nfft)
         p_med = median_over_time(p)                # (nsub, nfft)
         out = {"sxx_dbfs": to_dbfs(p, eps),
@@ -228,6 +236,66 @@ def median_over_time_batched(p: torch.Tensor) -> torch.Tensor:
         return median_cuda.median_over_time_cuda(p.contiguous(),
                                                  batched=True)
     return torch.stack([median_over_time(pb) for pb in p])
+
+
+def median_over_time_psum(p: torch.Tensor, mesh, axis: str,
+                          ntime_valid: Optional[int] = None,
+                          row_window: Optional[tuple] = None) -> torch.Tensor:
+    """Median across a time axis SHARDED over ``axis`` of ``mesh`` — the
+    port of median_over_time_psum (ops/stft.py:309-363 of the JAX
+    package): ``p`` is this rank's (ntime_l, ..., nfft) float32 block of
+    the row-sharded cube, and every rank gets the median.
+
+    The same 33-step float-bit bisection as ops.plain.median_bisect, but
+    each round's compare-count is summed over the axis (one all_reduce of
+    a (..., nfft) int64 plane), so no rank ever holds more than its own
+    block; the even-n step adds one more sum and a min. Rows at global
+    index >= ``ntime_valid`` (time-axis padding) are masked out of every
+    count; ``row_window=(lo, hi)`` instead restricts to an arbitrary global
+    row range (the mesh batch tier's per-request column spans). A global
+    row index is the rank's coordinate times its rows plus the local row.
+    Exact for float32, equal to np.median bit for bit."""
+    # the parallel package imports this module, so its collectives are
+    # imported here, at the call
+    from pyspectrogram_tpu_torch.parallel import mesh as pmesh
+
+    ntime_l = p.shape[0]
+    if row_window is None and ntime_valid is None:
+        raise ValueError(
+            "median_over_time_psum needs the global row span: pass "
+            "ntime_valid (valid-prefix length) or row_window=(lo, hi) — "
+            "the shard cannot see the global row count on its own")
+    lo_r, hi_r = (0, int(ntime_valid)) if row_window is None else (
+        int(row_window[0]), int(row_window[1]))
+    n = hi_r - lo_r
+    k = (n + 1) // 2
+    idx = pmesh.axis_index(mesh, axis) * ntime_l + torch.arange(
+        ntime_l, device=p.device)
+    valid = ((idx >= lo_r) & (idx < hi_r)).reshape(
+        (ntime_l,) + (1,) * (p.dim() - 1))
+    kb = plain._float_order_key(p)
+    lo = torch.full(p.shape[1:], -0x7F800001, dtype=torch.int32,
+                    device=p.device)
+    hi = torch.full(p.shape[1:], 0x7F800000, dtype=torch.int32,
+                    device=p.device)
+
+    def count(mask: torch.Tensor) -> torch.Tensor:
+        return pmesh.all_reduce((mask & valid).sum(dim=0), mesh, axis, "sum")
+
+    # 33 halvings shrink the full key span (~2^32) to 0
+    for _ in range(33):
+        mid = (lo & hi) + ((lo ^ hi) >> 1)
+        go_hi = count(kb <= mid) >= k
+        lo, hi = torch.where(go_hi, lo, mid + 1), torch.where(go_hi, mid, hi)
+    v1 = (hi ^ ((hi >> 31) & 0x7FFFFFFF)).view(torch.float32)
+    if n % 2:
+        return v1
+    cnt_le = count(p <= v1)
+    bigger = torch.where((p > v1) & valid, p,
+                         torch.full_like(p, float("inf")))
+    v2 = torch.where(cnt_le > k, v1,
+                     pmesh.all_reduce(bigger.amin(dim=0), mesh, axis, "min"))
+    return 0.5 * (v1 + v2)
 
 
 def pick_impl(nfft: int, device, fft_impl: str = "auto") -> str:

@@ -37,14 +37,23 @@ from pyspectrogram_tpu.display import tile as jtile
 from pyspectrogram_tpu.io import reader as jreader
 from pyspectrogram_tpu.io import synthetic as jsynthetic
 from pyspectrogram_tpu.io import time_util as jtime_util
+from pyspectrogram_tpu.kernels import gemm_fft as jgemm_fft
 from pyspectrogram_tpu.native import ingest as jingest
+from pyspectrogram_tpu.parallel import big_sti as jbig_sti
+from pyspectrogram_tpu.parallel import dist_fft as jdist_fft
+from pyspectrogram_tpu.parallel import mesh as jpmesh
+from pyspectrogram_tpu.parallel import sharded as jsharded
 from pyspectrogram_tpu.utils import config as jconfig
 from pyspectrogram_tpu.utils import errors as jerrors
 from pyspectrogram_tpu_torch.clients import _qt_headless as kit
 from pyspectrogram_tpu_torch.clients import cli, gui
 from pyspectrogram_tpu_torch.display import colormap, render, tile
 from pyspectrogram_tpu_torch.io import reader, synthetic, time_util
+from pyspectrogram_tpu_torch.kernels import gemm_fft
 from pyspectrogram_tpu_torch.native import ingest
+from pyspectrogram_tpu_torch.parallel import big_sti, dist_fft
+from pyspectrogram_tpu_torch.parallel import mesh as pmesh
+from pyspectrogram_tpu_torch.parallel import sharded
 from pyspectrogram_tpu_torch.utils import config, errors
 
 REPO = Path(__file__).resolve().parents[1]
@@ -93,6 +102,19 @@ def test_verbatim_copy_is_the_original(rel):
     (ingest.deinterleave_plane_major, jingest.deinterleave_plane_major),
     (ingest._load, jingest._load),
     (ingest._build, jingest._build),
+    (pmesh.pad_to_multiple, jpmesh.pad_to_multiple),
+    (pmesh.pad_starts, jpmesh.pad_starts),
+    (pmesh.pad_contiguous_block, jpmesh.pad_contiguous_block),
+    (dist_fft.split_for_devices, jdist_fft.split_for_devices),
+    (dist_fft.reference_order, jdist_fft.reference_order),
+    (big_sti.frames_to_x2, jbig_sti.frames_to_x2),
+    (big_sti.to_freq_order, jbig_sti.to_freq_order),
+    (gemm_fft.FFTPlan, jgemm_fft.FFTPlan),
+    (gemm_fft.dft_mat, jgemm_fft.dft_mat),
+    (gemm_fft.twiddle_mat, jgemm_fft.twiddle_mat),
+    (gemm_fft.split_factors, jgemm_fft.split_factors),
+    (gemm_fft.make_plan, jgemm_fft.make_plan),
+    (gemm_fft.gemm_fft_numpy, jgemm_fft.gemm_fft_numpy),
 ], ids=lambda o: getattr(o, "__qualname__", ""))
 def test_copied_piece_is_the_original(port_obj, jax_obj):
     """Functions and classes copied into modules of the port's own."""
@@ -162,6 +184,76 @@ def test_package_exports_are_the_jax_packages(sub):
         (m.name, m.value) for m in jpkg.TerminateReason]
     assert {n for n in dir(jpkg) if not n.startswith("_")
             and not inspect.ismodule(getattr(jpkg, n))} <= set(dir(pkg))
+
+
+@pytest.mark.parametrize("sub", ["parallel", "kernels"])
+def test_parallel_and_kernels_exports_are_the_jax_packages(sub):
+    """The port's parallel exports the JAX package's names; its kernels
+    export the JAX package's but for the Pallas kernel's own
+    (make_pallas_sti_psd, pallas_supported, to_plane_major)."""
+    import importlib
+
+    mod = importlib.import_module(f"pyspectrogram_tpu_torch.{sub}")
+    jmod = importlib.import_module(f"pyspectrogram_tpu.{sub}")
+    pallas = {"make_pallas_sti_psd", "pallas_supported", "to_plane_major"}
+    assert mod.__all__ == [n for n in jmod.__all__ if n not in pallas]
+    for name in mod.__all__:
+        v = getattr(mod, name)
+        if callable(v):
+            assert v.__module__.startswith("pyspectrogram_tpu_torch."), name
+        else:
+            assert v == getattr(jmod, name), name
+    assert sharded.GATHERED_MEDIAN_MAX_BYTES == \
+        jsharded.GATHERED_MEDIAN_MAX_BYTES
+
+
+def test_parallel_and_gemm_copies_give_the_originals_results():
+    """The copied numpy helpers of parallel.mesh, parallel.dist_fft,
+    parallel.big_sti and kernels.gemm_fft on the same inputs."""
+    rng = np.random.default_rng(2)
+    for n, m in ((13, 4), (16, 4), (1, 3)):
+        assert pmesh.pad_to_multiple(n, m) == jpmesh.pad_to_multiple(n, m)
+    starts = np.arange(13, dtype=np.int32) * 7
+    for a, b in zip(pmesh.pad_starts(starts, 4),
+                    jpmesh.pad_starts(starts, 4)):
+        np.testing.assert_array_equal(a, b)
+    pm = rng.standard_normal((4, 13 * 64)).astype(np.float32)
+    for a, b in zip(pmesh.pad_contiguous_block(pm, 13, 64, 4),
+                    jpmesh.pad_contiguous_block(pm, 13, 64, 4)):
+        np.testing.assert_array_equal(a, b)
+    for nfft, ndev in ((1 << 12, 4), (1 << 20, 8), (1 << 9, 2)):
+        assert dist_fft.split_for_devices(nfft, ndev) == \
+            jdist_fft.split_for_devices(nfft, ndev)
+    for bad in ((1000, 2), (256, 32)):
+        with pytest.raises(ValueError) as e:
+            dist_fft.split_for_devices(*bad)
+        with pytest.raises(ValueError) as je:
+            jdist_fft.split_for_devices(*bad)
+        assert str(e.value) == str(je.value)
+    xm = rng.standard_normal((8, 16))
+    np.testing.assert_array_equal(dist_fft.reference_order(xm),
+                                  jdist_fft.reference_order(xm))
+    frames = rng.standard_normal((3, 2, 2, 2 * 128)).astype(np.float32)
+    np.testing.assert_array_equal(big_sti.frames_to_x2(frames, 128, 2, 8, 16),
+                                  jbig_sti.frames_to_x2(frames, 128, 2, 8, 16))
+    km = rng.standard_normal((3, 2, 8, 16))
+    np.testing.assert_array_equal(big_sti.to_freq_order(km),
+                                  jbig_sti.to_freq_order(km))
+    for n in (8, 128):
+        np.testing.assert_array_equal(gemm_fft.dft_mat(n), jgemm_fft.dft_mat(n))
+    np.testing.assert_array_equal(gemm_fft.twiddle_mat(8, 16, 256),
+                                  jgemm_fft.twiddle_mat(8, 16, 256))
+    for nfft in (256, 1 << 16, 1 << 20):
+        assert gemm_fft.split_factors(nfft) == jgemm_fft.split_factors(nfft)
+    xr, xi = (rng.standard_normal((2, 1024)).astype(np.float32)
+              for _ in range(2))
+    for nfft in (256, 4096, 1 << 16):
+        for a, b in zip(gemm_fft.make_plan(nfft), jgemm_fft.make_plan(nfft)):
+            np.testing.assert_array_equal(a, b)
+    plan, jplan = gemm_fft.make_plan(1024), jgemm_fft.make_plan(1024)
+    for a, b in zip(gemm_fft.gemm_fft_numpy(xr, xi, plan),
+                    jgemm_fft.gemm_fft_numpy(xr, xi, jplan)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_config_validation_and_time_spans():

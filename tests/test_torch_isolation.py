@@ -79,7 +79,12 @@ def test_every_module_is_listed():
     for name in ("pyspectrogram_tpu_torch.io.reader",
                  "pyspectrogram_tpu_torch.native.ingest",
                  "pyspectrogram_tpu_torch.clients._qt_headless",
-                 "pyspectrogram_tpu_torch.kernels.median_cuda"):
+                 "pyspectrogram_tpu_torch.kernels.median_cuda",
+                 "pyspectrogram_tpu_torch.kernels.gemm_fft",
+                 "pyspectrogram_tpu_torch.parallel.mesh",
+                 "pyspectrogram_tpu_torch.parallel.sharded",
+                 "pyspectrogram_tpu_torch.parallel.dist_fft",
+                 "pyspectrogram_tpu_torch.parallel.big_sti"):
         assert name in MODULES
     assert len(MODULES) == len(set(MODULES)) > 40
 

@@ -221,10 +221,15 @@ def test_psd_frames_and_pack_complex_host_match_jax(dtype):
 
 
 def test_sti_fn_refuses_what_jax_refuses_and_gemm():
-    """fft_impl="gemm" (the JAX package's GEMM DFT) is not ported and
-    says so; a bad mode, fft_impl or compute dtype raises as in JAX."""
-    with pytest.raises(ValueError, match="gemm"):
-        stft.make_sti_fn(nfft=256, fft_impl="gemm")
+    """fft_impl="gemm" (the JAX package's GEMM DFT) runs and gives the
+    torch.fft route's spectra; a bad mode, fft_impl or compute dtype raises
+    as in JAX."""
+    x = torch.from_numpy(_time_major(256 * 3, 1, "complex", seed=3)[0])
+    starts = torch.tensor([0, 256, 512])
+    got = stft.make_sti_fn(nfft=256, fft_impl="gemm", return_linear=True)(
+        x, starts)
+    want = stft.make_sti_fn(nfft=256, return_linear=True)(x, starts)
+    np.testing.assert_allclose(got["sxx"].numpy(), want["sxx"].numpy(), **LIN)
     for kw in (dict(mode="median"), dict(fft_impl="pallas"),
                dict(compute_dtype=torch.float32)):
         with pytest.raises(ValueError):
