@@ -41,7 +41,12 @@ drives the port's paths on the card, checking what comes out:
   summed-bisection median against the one-device run, the 2x2 results
   against the 1x1 ones, and every rank's B1/B2 launches; the 1x1 phase
   also holds make_sti_fn(fft_impl="gemm") to a float64 FFT with TF32
-  allowed;
+  allowed; both phases then run the streaming mesh (h): StreamingSti(mesh=)
+  at the streaming shapes (B1, B3 and B2 per rank, one B4 push), the
+  full-width LiveStreamEngine(mesh=) with its checkpoint resumed on the
+  mesh and on one device, and a streaming SpectrogramProcessor(mesh=),
+  bit for bit against the one-device objects (1x1) and the 1x1 outputs
+  (2x2), with every rank's B1-B4 launches and the push and tick times;
 - the port's bench (pyspectrogram_tpu_torch.bench) at the JAX bench's
   default shapes: every row of its --all suite, each with the launches of
   its kernels, and its headline line;
@@ -696,8 +701,9 @@ def phase_live(dev, card, x, sr):
     from the first 31 s of ``x`` (two tones at ``sr``):
     cold start, ticks after appends, exact median, checkpoint + resume bit
     for bit, tick timing; the same at nfft 2^20 (B4); and the engine on
-    the CPU at a 1 s window as the reference. Returns the launch counts
-    and (B2's ms, its plain version's ms, the window's shape)."""
+    the CPU at a 1 s window as the reference. Returns the launch counts,
+    (B2's ms, its plain version's ms, the window's shape) and the tick's
+    p50 and p90 ms."""
     import numpy as np
     import torch
 
@@ -895,7 +901,8 @@ def phase_live(dev, card, x, sr):
         emit({"phase": f"live_vs_cpu_nfft{c.nfft}", "stream_seconds": 1.0,
               "ticks": 3, "max_db_diff_vs_cpu": d,
               "tile_pixels_off_by_one": n_off})
-    return total, b2_window
+    return total, b2_window, {"tick_p50_ms": tick_p50,
+                              "tick_p90_ms": tick_p90}
 
 
 def phase_b2_batched(dev, card, rng):
@@ -1998,6 +2005,265 @@ def gemm_dft_path(dev) -> dict:
                 got["sxx"] - want_sti["sxx"]).abs().max().item()}
 
 
+#: (h), the streaming mesh: the bench's stream shapes (nfft 4096, two
+#: subchannels, 8 columns a push, a 256-column ring), B4's push (nfft
+#: 65536, nint 1, 4 columns, a 16-column ring), phase_live's full-width
+#: engine (a 30 s window of a 1 MS/s capture, hop 2048) over a capture of
+#: MESH_LIVE_SECONDS, and the timed ticks after 0.1 s appends
+MESH_STREAM = dict(nfft=4096, nsub=2, k=8, ring_len=256)
+MESH_STREAM_BIG = dict(nfft=1 << 16, k=4, ring_len=16)
+MESH_LIVE_SECONDS = 36
+MESH_LIVE_TICKS = 10
+
+
+def streaming_mesh_paths(mesh, dev, one_device: bool) -> tuple:
+    """(h) the streaming mesh on this rank:
+
+    - StreamingSti(mesh=) at the bench's stream shapes, ``exact`` (B1 per
+      rank) and ``overlap2048`` (B3 per rank): pushes that wrap the ring,
+      then refresh_view with a display tile and a 200-column median (B2
+      per rank), and each push timed; one push at nfft 65536 (B4 per rank)
+      with its dB columns gathered. Each against the one-device stream on
+      the same card and blocks, bit for bit;
+    - LiveStreamEngine(mesh=) at phase_live's full width: a cold start,
+      three ticks after the capture grows by 1 s, save, resume(mesh=) and
+      a tick bit for bit the pre-save one, the meshed checkpoint in the
+      one-device resume (global rank 0), then MESH_LIVE_TICKS ticks timed
+      after 0.1 s appends;
+    - a streaming SpectrogramProcessor(mesh=) preloaded from that
+      checkpoint, two iterations.
+
+    With ``one_device`` (the 1x1 phase) the engine and the processor also
+    run on one device over the same capture, tick for tick, and must
+    equal the meshed ones bit for bit; the 2x2 phase holds its outputs to
+    the 1x1 phase's instead (mesh_rank). Returns ({name: host array},
+    {path: numbers}, the launches of the meshed calls)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pyspectrogram_tpu_torch import SpectrogramConfig
+    from pyspectrogram_tpu_torch.display.tile import make_tile_spec
+    from pyspectrogram_tpu_torch.io.memory import MemoryDataset
+    from pyspectrogram_tpu_torch.models.streaming import StreamingSti
+    from pyspectrogram_tpu_torch.ops import stft
+    from pyspectrogram_tpu_torch.parallel import mesh as pmesh
+    from pyspectrogram_tpu_torch.parallel.mesh import CHAN_AXIS, TIME_AXIS
+    from pyspectrogram_tpu_torch.runtime import (
+        LiveStreamEngine,
+        ProcessorCallbacks,
+        SpectrogramProcessor,
+    )
+
+    sr = MESH_SR
+    res, line = {}, {}
+    total = {k: 0 for k in read_counts()}
+
+    def mesh_call(fn):
+        out, run = counted(fn)
+        add_counts(total, run)
+        return out, run
+
+    x = long_two_tone(MESH_LIVE_SECONDS * sr, noise_rms=1e-3, seed=2)
+    pm = np.ascontiguousarray(x[:2 * sr].view(np.float32).T)   # 4 planes
+    nfft, nsub, k, ring_len = (MESH_STREAM[f] for f in ("nfft", "nsub", "k",
+                                                        "ring_len"))
+    spec = make_tile_spec(stft.shifted_freqs(nfft, sr), (-500.0, 500.0),
+                          COLOR_RANGE_DB)
+
+    def pushes_ms(s, blk):
+        """CUDA-event ms a push of the device block ``blk``, over 100."""
+        box = [s.init_state()]
+
+        def step():
+            box[0], _ = s.push(box[0], blk, return_db=False)
+
+        return event_ms(step, iters=100, warm=10)
+
+    for label, hop in (("exact", None), (f"overlap{nfft // 2}", nfft // 2)):
+        block_len = k * (hop or nfft)
+        blocks = [pm[:, i * block_len:(i + 1) * block_len]
+                  for i in range(ring_len // k + 8)]          # wraps
+        kw = dict(nfft=nfft, nint=1, nsub=nsub, block_len=block_len,
+                  hop=hop, ring_len=ring_len)
+        meshed = StreamingSti(device=dev, mesh=mesh, **kw)
+        solo = StreamingSti(device=dev, **kw)
+
+        def run(s):
+            st = s.init_state()
+            for b in blocks:
+                st, _ = s.push(st, b, return_db=False)
+            tile, med = s.refresh_view(st, 32, 7, spec=spec, n_med=200)
+            view, _ = s.refresh_view(st, 32, 7, n_med=200)
+            return {"tile": tile, "view": view, "median": med,
+                    "ring_median": s.median_psd(st)}
+
+        got, run_counts = mesh_call(lambda: run(meshed))
+        want = run(solo)
+        kernel = "sti_psd" if hop is None else "stream_psd"
+        check(run_counts[kernel] > 0 and run_counts["median"] > 0,
+              f"h_stream_{label}: launches {run_counts}")
+        bit_equal = all(np.array_equal(got[f], want[f]) for f in got)
+        check(bit_equal, f"h_stream_{label}: the meshed stream differs "
+                         "from the one-device one")
+        for f, v in got.items():
+            res[f"h_stream_{label}_{f}"] = v
+        blk = torch.from_numpy(blocks[0]).to(dev)
+        line[f"h_stream_{label}"] = {
+            "pushes": len(blocks), "launches": run_counts,
+            "bit_equal": bit_equal, "push_ms": pushes_ms(meshed, blk),
+            "solo_push_ms": pushes_ms(solo, blk)}
+
+    big = MESH_STREAM_BIG
+    kw = dict(nfft=big["nfft"], nint=1, nsub=nsub,
+              block_len=big["k"] * big["nfft"], ring_len=big["ring_len"])
+    blk = pm[:, :kw["block_len"]]
+    meshed = StreamingSti(device=dev, mesh=mesh, **kw)
+    solo = StreamingSti(device=dev, **kw)
+    (_, cols), run_counts = mesh_call(lambda: meshed.push(
+        meshed.init_state(), blk))
+    _, want = solo.push(solo.init_state(), blk)
+    check(run_counts["big_psd"] > 0, f"h_stream_b4: launches {run_counts}")
+    check(torch.equal(cols, want), "h_stream_b4: the meshed push's dB "
+                                   "columns differ from the one-device one's")
+    res["h_stream_b4_cols"] = cols.cpu().numpy()
+    line["h_stream_b4"] = {"nfft": big["nfft"], "k": big["k"],
+                           "launches": run_counts, "bit_equal": True}
+    del meshed, solo, cols, want
+
+    # the full-width live engine over a capture that grows between ticks
+    cfg = SpectrogramConfig(nfft=4096, hop=2048, ntime=100,
+                            stream_seconds=30.0, display_tile=True,
+                            color_range_db=COLOR_RANGE_DB, streaming=True)
+    pos = 31 * sr
+    ds = MemoryDataset(x[:pos], sr)
+    fields = ("tile", "sxx_med_dbfs", "frame_starts", "times", "mask")
+
+    def grow(n):
+        nonlocal pos
+        ds.append(x[pos:pos + n])
+        pos += n
+        ds.bnds_update()
+
+    def same(a, b):
+        return all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in fields)
+
+    t0 = time.perf_counter()
+    eng, _ = mesh_call(lambda: LiveStreamEngine(ds, cfg, dev, mesh=mesh))
+    ticks = [mesh_call(lambda: eng.tick(cfg))[0]]
+    cold_s = time.perf_counter() - t0
+    solo = LiveStreamEngine(ds, cfg, dev) if one_device else None
+    solo_equal = None if solo is None else same(ticks[0], solo.tick(cfg))
+    for _ in range(3):
+        grow(sr)
+        ticks.append(mesh_call(lambda: eng.tick(cfg))[0])
+        if solo is not None:
+            solo_equal = solo_equal and same(ticks[-1], solo.tick(cfg))
+    check(solo_equal is not False, "h_live: a meshed tick differs from the "
+                                   "one-device engine's")
+    pre = ticks[-1]
+    med = pre.sxx_med_dbfs
+    for s_, f in enumerate((sr / 16.0, sr / 8.0)):
+        b = int(med[:, s_].argmax())
+        check(abs(pre.freqs[b] - f) <= sr / len(pre.freqs)
+              and abs(med[b, s_]) <= 0.1,
+              f"h_live: sub {s_} peak {med[b, s_]} dBFS at {pre.freqs[b]}")
+    check(pre.tile.shape[1] == nsub and pre.mask.all(), "h_live: tile/mask")
+    for f in ("tile", "sxx_med_dbfs", "frame_starts"):
+        res[f"h_live_{f}"] = getattr(pre, f)
+    # save, resume on the mesh, tick with no new samples: the pre-save tick
+    tp, cp = (pmesh.axis_size(mesh, a) for a in (TIME_AXIS, CHAN_AXIS))
+    t0 = time.perf_counter()
+    path = eng.save(mesh_dir() / f"live_{tp}x{cp}.npz")
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng2, _ = mesh_call(lambda: LiveStreamEngine.resume(ds, cfg, path, dev,
+                                                        mesh=mesh))
+    resume_s = time.perf_counter() - t0
+    resumed_equal = same(mesh_call(lambda: eng2.tick(cfg))[0], pre)
+    check(resumed_equal, "h_live: the resumed tick differs from the "
+                         "pre-save one")
+    del eng2
+    solo_resume_equal = None
+    if dist.get_rank() == 0:
+        e1 = LiveStreamEngine.resume(ds, cfg, path, dev)
+        solo_resume_equal = same(e1.tick(cfg), pre)
+        check(solo_resume_equal, "h_live: the one-device resume of the "
+                                 "meshed checkpoint differs")
+        del e1
+    walls, solo_walls = [], []
+    for _ in range(MESH_LIVE_TICKS):
+        ds.append(x[pos:pos + sr // 10])
+        pos += sr // 10
+        t0 = time.perf_counter()
+        ds.bnds_update()
+        eng.tick(cfg)
+        walls.append(time.perf_counter() - t0)
+        if solo is not None:
+            t0 = time.perf_counter()
+            ds.bnds_update()
+            solo.tick(cfg)
+            solo_walls.append(time.perf_counter() - t0)
+    ring_bytes = eng.state.ring.numel() * 4
+    del eng, solo
+    live = {"cold_start_s": cold_s, "ticks_checked": len(ticks),
+            "ring_bytes_on_this_rank": ring_bytes,
+            "save_s": save_s, "resume_s": resume_s,
+            "resumed_bit_equal": resumed_equal,
+            "solo_resume_bit_equal": solo_resume_equal,
+            "tick_n": len(walls),
+            "tick_p50_ms": float(np.percentile(walls, 50) * 1e3),
+            "tick_p90_ms": float(np.percentile(walls, 90) * 1e3)}
+    if solo_walls:
+        live.update(solo_bit_equal=solo_equal,
+                    solo_tick_p50_ms=float(np.percentile(solo_walls, 50)
+                                           * 1e3),
+                    solo_tick_p90_ms=float(np.percentile(solo_walls, 90)
+                                           * 1e3))
+    line["h_live"] = live
+
+    # a streaming processor on the mesh, preloaded from the checkpoint
+    def processor(m):
+        events = []
+        proc = SpectrogramProcessor(
+            "streaming", ds, 0, cfg,
+            callbacks=ProcessorCallbacks(on_iterated=events.append),
+            streaming_sleep=0.0, max_iterations=2, device=dev, mesh=m)
+        proc.preload_live_state(path)
+        proc.run()
+        check(len(events) == 2 and proc.reason is not None
+              and int(proc.reason) == 0,
+              f"h_processor: {len(events)} iterations, reason {proc.reason}")
+        return events[-1]
+
+    t0 = time.perf_counter()
+    it, run_counts = mesh_call(lambda: processor(mesh))
+    proc_s = time.perf_counter() - t0
+    check(run_counts["stream_psd"] > 0 and run_counts["median"] > 0,
+          f"h_processor: launches {run_counts}")
+    for f in ("tile", "sxx_med_dbfs"):
+        res[f"h_processor_{f}"] = getattr(it, f)
+    proc_line = {"iterations": 2, "seconds": proc_s, "launches": run_counts}
+    if one_device:
+        want = processor(None)
+        proc_line["solo_bit_equal"] = all(
+            np.array_equal(getattr(it, f), getattr(want, f))
+            for f in ("tile", "sxx_med_dbfs", "times", "mask"))
+        check(proc_line["solo_bit_equal"], "h_processor: the meshed "
+                                           "processor differs from the "
+                                           "one-device one")
+    line["h_processor"] = proc_line
+    return res, line, total
+
+
+def check_stream_mesh_launches(run: dict, what: str) -> None:
+    check(all(run[k] > 0 for k in ("sti_psd", "stream_psd", "median",
+                                   "big_psd")),
+          f"{what}: the streaming mesh launched B1 {run['sti_psd']}x, B2 "
+          f"{run['median']}x, B3 {run['stream_psd']}x, B4 {run['big_psd']}x")
+
+
 def check_mesh_launches(run: dict, what: str) -> None:
     check(run["sti_psd"] > 0 and run["median"] > 0
           and run["median_batched"] > 0 and run["big_psd"] > 0,
@@ -2005,11 +2271,13 @@ def check_mesh_launches(run: dict, what: str) -> None:
           f"batched B2 {run['median_batched']}x, B4 {run['big_psd']}x")
 
 
-def phase_mesh_1x1_nccl(dev, card) -> dict:
+def phase_mesh_1x1_nccl(dev, card, live_ticks: dict) -> dict:
     """The mesh paths on a 1x1 mesh over NCCL in this process (the device
-    transport; every axis has one rank, so no collective is called) and
-    the GEMM DFT; saves the results under build/mesh for the 2x2 phase.
-    Returns the launches."""
+    transport; every axis has one rank, so no collective is called), the
+    streaming mesh (h) against the one-device objects, and the GEMM DFT;
+    saves the results under build/mesh for the 2x2 phase. ``live_ticks``
+    (phase_live's tick p50/p90) is printed beside (h)'s. Returns the
+    launches."""
     import shutil
 
     import numpy as np
@@ -2033,13 +2301,22 @@ def phase_mesh_1x1_nccl(dev, card) -> dict:
         res, line, run = mesh_paths(mesh, mesh, dev)
         line["e_gemm"] = gemm_dft_path(dev)
         seconds = time.perf_counter() - t0
+        h_res, h_line, h_run = streaming_mesh_paths(mesh, dev,
+                                                    one_device=True)
+        h_seconds = time.perf_counter() - t0 - seconds
     finally:
         dist.destroy_process_group()
     check_mesh_launches(run, "mesh_1x1_nccl")
-    np.savez(d / "mesh_1x1.npz", **res)
+    check_stream_mesh_launches(h_run, "mesh_1x1_nccl (h)")
+    np.savez(d / "mesh_1x1.npz", **res, **h_res)
+    h_line["h_live"]["solo_live_full_width"] = live_ticks
     emit({"phase": "mesh_1x1_nccl", "card": card, "mesh": [1, 1],
           "backend": "nccl", "seconds": seconds, "paths": line,
           "launches": run})
+    emit({"phase": "mesh_1x1_nccl_streaming", "card": card, "mesh": [1, 1],
+          "backend": "nccl", "seconds": h_seconds, "paths": h_line,
+          "launches": h_run})
+    add_counts(run, h_run)
     return run
 
 
@@ -2051,7 +2328,8 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def mesh_rank(rank: int, world: int, port: int, card: str) -> None:
+def mesh_rank(rank: int, world: int, port: int, card: str,
+              live_ticks: dict) -> None:
     """One rank of the one-card 2x2 phase (torch.multiprocessing, spawn):
     gloo over localhost, every rank on cuda:0, the mesh paths on a 2x2
     mesh and the distributed FFT on a 4x1 one. Rank 0 gathers every rank's
@@ -2078,21 +2356,34 @@ def mesh_rank(rank: int, world: int, port: int, card: str) -> None:
         dev = pmesh.mesh_device(mesh)
         res, line, run = mesh_paths(mesh, mesh41, dev)
         seconds = time.perf_counter() - t0
-        keys = sorted(run)
-        mine = torch.tensor([[run[k] for k in keys]], device=dev)
+        h_res, h_line, h_run = streaming_mesh_paths(mesh, dev,
+                                                    one_device=False)
+        h_seconds = time.perf_counter() - t0 - seconds
+        counts = {**run, **{f"h_{k}": v for k, v in h_run.items()}}
+        keys = sorted(counts)
+        mine = torch.tensor([[counts[k] for k in keys]], device=dev)
         every = pmesh.all_gather(mine, mesh41, TIME_AXIS, dim=0).cpu()
     finally:
         dist.destroy_process_group()
     if rank:
         return
     ranks = [dict(zip(keys, map(int, row))) for row in every.tolist()]
-    for r, counts in enumerate(ranks):
-        check_mesh_launches(counts, f"mesh_2x2_one_card rank {r}")
+    h_ranks = [{k: c[f"h_{k}"] for k in h_run} for c in ranks]
+    ranks = [{k: c[k] for k in run} for c in ranks]
+    for r, (c, hc) in enumerate(zip(ranks, h_ranks)):
+        check_mesh_launches(c, f"mesh_2x2_one_card rank {r}")
+        check_stream_mesh_launches(hc, f"mesh_2x2_one_card (h) rank {r}")
     one = np.load(mesh_dir() / "mesh_1x1.npz")
     vs = {}
-    for k, v in res.items():
+    for k, v in {**res, **h_res}.items():
         w = one[k]
         check(v.shape == w.shape, f"mesh_2x2 {k}: {v.shape} vs {w.shape}")
+        if k.startswith("h_"):
+            # the streaming mesh: bit for bit the 1x1 mesh's output
+            vs[k] = {"bit_equal": bool(np.array_equal(v, w))}
+            check(vs[k]["bit_equal"], f"mesh_2x2 {k} differs from the 1x1 "
+                                      "mesh's")
+            continue
         if v.dtype == np.uint8:
             vs[k] = {"pixels_off": check_tiles(v, w, f"mesh_2x2 {k}")}
             continue
@@ -2109,21 +2400,34 @@ def mesh_rank(rank: int, world: int, port: int, card: str) -> None:
             # standing kernel tolerance
             ok = np.allclose(10.0 ** (v / 10.0), 10.0 ** (w / 10.0), **LIN)
         check(ok, f"mesh_2x2 {k} differs from the 1x1 mesh's: {vs[k]}")
-    total = {k: sum(c[k] for c in ranks) for k in keys}
+    total = {k: sum(c[k] + hc[k] for c, hc in zip(ranks, h_ranks))
+             for k in run}
+    h_line["h_live"]["solo_live_full_width"] = live_ticks
     emit({"phase": "mesh_2x2_one_card", "card": card, "mesh": [2, 2],
           "fft_mesh": [4, 1], "backend": "gloo", "ranks_on_one_card": world,
-          "seconds": seconds, "paths": line, "vs_mesh_1x1": vs,
-          "launches_by_rank": ranks, "launches": total})
+          "seconds": seconds, "paths": line,
+          "vs_mesh_1x1": {k: v for k, v in vs.items()
+                          if not k.startswith("h_")},
+          "launches_by_rank": ranks,
+          "launches": {k: sum(c[k] for c in ranks) for k in run}})
+    emit({"phase": "mesh_2x2_one_card_streaming", "card": card,
+          "mesh": [2, 2], "backend": "gloo", "ranks_on_one_card": world,
+          "seconds": h_seconds, "paths": h_line,
+          "vs_mesh_1x1": {k: v for k, v in vs.items()
+                          if k.startswith("h_")},
+          "launches_by_rank": h_ranks,
+          "launches": {k: sum(c[k] for c in h_ranks) for k in h_run}})
     (mesh_dir() / "mesh_2x2.json").write_text(json.dumps(total))
 
 
-def phase_mesh_2x2_one_card(card) -> dict:
+def phase_mesh_2x2_one_card(card, live_ticks: dict) -> dict:
     """Four ranks spawned on the one card (mesh_rank); a rank's exception
     fails the run, and ranks still running after 600 s are killed and fail
     it. Returns the launches of every rank."""
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(mesh_rank, args=(MESH_RANKS, _free_port(), card),
+    ctx = mp.start_processes(mesh_rank, args=(MESH_RANKS, _free_port(), card,
+                                              live_ticks),
                              nprocs=MESH_RANKS, join=False,
                              start_method="spawn")
     deadline = time.monotonic() + 600
@@ -2538,28 +2842,6 @@ def main() -> int:
             b1_big[nfft].update(four_step_launch_ms(xd, sd, nfft, nint))
         emit(b1_big[nfft])
 
-    # the other paths, on a long two-tone capture at 1 MS/s: the written
-    # request at nfft >= 65536 over its first 31 s, the streaming core, and
-    # the live engine, which grows a capture from it
-    x_long = long_two_tone(live_samples(sr), noise_rms=1e-3, seed=2)
-    phase_big_requests(dev, MemoryDataset(x_long[:31 * sr], sr), tones,
-                       launches)
-    stream_counts, b3 = phase_streaming(dev, card, x_long[:2 * sr], sr)
-    add_counts(launches, stream_counts)
-    live_counts, b2_window = phase_live(dev, card, x_long, sr)
-    add_counts(launches, live_counts)
-    add_counts(launches, phase_live_tabs(dev, card, x_long, sr))
-
-    # the port's own entry points: the pstpu-torch commands and the viewer
-    # (reading from memory: the card's machine has no HDF5 reader), then
-    # the filters at full width
-    ds_long = MemoryDataset(x_long[:31 * sr], sr)
-    with tempfile.TemporaryDirectory() as tmp:
-        add_counts(launches, phase_cli(dev, card, ds, ds_long, tones, tmp))
-        add_counts(launches, phase_gui(dev, card, ds, ds_long, tones, tmp))
-    del x_long, ds_long
-    phase_filter(dev, card)
-
     # B4 at the written request's shapes: 65536 x 4 x 32 and 2^20 x 1 x 16
     b4 = {}
     for nfft, nint, ntime in ((1 << 16, 4, 32), (1 << 20, 1, 16)):
@@ -2573,13 +2855,22 @@ def main() -> int:
         b4[nfft] = in_turns(lambda: plain.psd_torch(xd, sd, **psd_kw),
                             lambda: big_cuda.big_psd_cuda(xd, sd, **psd_kw),
                             iters=20)
-        # the device time from a 20-call trace that holds every launch the
-        # calls made (a trace that drops kernel events reads low)
+        # the device time from a trace that holds every launch the calls
+        # made (a trace that drops kernel events reads low): 20 calls,
+        # else 5, as kernel_times.py takes it; taken early in the run,
+        # since a trace late in a long process has come back without
+        # kernel events
         chunks = -(-ntime // big_cuda.chunk_columns(
             ntime, 2 * nint * nfft * 8, big_cuda.WORKSPACE_MAX_BYTES))
-        dev_ms, dev_events = traced_device_ms(
-            lambda: big_cuda.big_psd_cuda(xd, sd, **psd_kw),
-            expect=2 * chunks * 20)
+        for calls in (20, 5):
+            dev_ms, dev_events = traced_device_ms(
+                lambda: big_cuda.big_psd_cuda(xd, sd, **psd_kw),
+                iters=calls, expect=2 * chunks * calls)
+            if dev_ms is not None:
+                break
+        dev_note = None if dev_ms is not None else (
+            f"no trace of 20 or 5 calls held their {2 * chunks} kernel "
+            f"events a call (the most: {dev_events})")
         b4[nfft] += (fft_alone_ms(xd, sd, nfft, nfft * nint),
                      psd_bound((xd, sd), got, nfft, ntime * 2 * nint),
                      dev_ms)
@@ -2592,14 +2883,37 @@ def main() -> int:
               "b4_fft_alone_ms": b4[nfft][2], "b4_bound_ms": b4[nfft][3][0],
               "b4_bound_by": b4[nfft][3][1], "b4_device_ms": b4[nfft][4],
               "b4_device_events": dev_events,
-              "b4_launches_traced": 2 * chunks * 20,
+              "b4_launches_traced": 2 * chunks * calls,
+              "b4_device_note": dev_note,
               **four_step_launch_ms(xd, sd, nfft, nint),
               "b4_samples_per_s": n_proc / (b4[nfft][0] * 1e-3)})
 
+    # the other paths, on a long two-tone capture at 1 MS/s: the written
+    # request at nfft >= 65536 over its first 31 s, the streaming core, and
+    # the live engine, which grows a capture from it
+    x_long = long_two_tone(live_samples(sr), noise_rms=1e-3, seed=2)
+    phase_big_requests(dev, MemoryDataset(x_long[:31 * sr], sr), tones,
+                       launches)
+    stream_counts, b3 = phase_streaming(dev, card, x_long[:2 * sr], sr)
+    add_counts(launches, stream_counts)
+    live_counts, b2_window, live_ticks = phase_live(dev, card, x_long, sr)
+    add_counts(launches, live_counts)
+    add_counts(launches, phase_live_tabs(dev, card, x_long, sr))
+
+    # the port's own entry points: the pstpu-torch commands and the viewer
+    # (reading from memory: the card's machine has no HDF5 reader), then
+    # the filters at full width
+    ds_long = MemoryDataset(x_long[:31 * sr], sr)
+    with tempfile.TemporaryDirectory() as tmp:
+        add_counts(launches, phase_cli(dev, card, ds, ds_long, tones, tmp))
+        add_counts(launches, phase_gui(dev, card, ds, ds_long, tones, tmp))
+    del x_long, ds_long
+    phase_filter(dev, card)
+
     # the mesh tier: a 1x1 mesh over NCCL in this process, then four ranks
     # on the one card over gloo, a 2x2 mesh
-    add_counts(launches, phase_mesh_1x1_nccl(dev, card))
-    add_counts(launches, phase_mesh_2x2_one_card(card))
+    add_counts(launches, phase_mesh_1x1_nccl(dev, card, live_ticks))
+    add_counts(launches, phase_mesh_2x2_one_card(card, live_ticks))
 
     # the port's bench at the JAX bench's default shapes: every row, then
     # the headline line (last, so that its thousands of launches precede

@@ -139,6 +139,15 @@ def quantize_db_tile(db: torch.Tensor, spec: TileSpec, qparams=None):
     return quantize_db_levels(db, qparams, spec.npoints)
 
 
+def quantize_tile_db(db: torch.Tensor, spec: TileSpec, qparams=None):
+    """Epilogue from dBFS values (..., nfft) -> uint8 tile (..., plot_n),
+    on the tensor's device: crop and decimation (one strided slice), then
+    quantization; for paths that already produced dB on the device."""
+    hi = spec.plot_lo + spec.plot_step * (spec.plot_n - 1) + 1
+    return quantize_db_tile(db[..., spec.plot_lo:hi:spec.plot_step], spec,
+                            qparams)
+
+
 def quantize_tile_linear(p_linear: torch.Tensor, spec: TileSpec,
                          eps: float = 1e-15, qparams=None):
     """LINEAR fftshifted power (..., nfft) -> uint8 tile (..., plot_n).
@@ -166,6 +175,4 @@ def tile_from_db(db, spec: TileSpec) -> np.ndarray:
         scale = np.float32((spec.npoints - 1) / (spec.cmax - spec.cmin))
         q = np.round((sl - np.float32(spec.cmin)) * scale)
         return np.clip(q, 0, spec.npoints - 1).astype(np.uint8)
-    hi = spec.plot_lo + spec.plot_step * (spec.plot_n - 1) + 1
-    return quantize_db_tile(db[..., spec.plot_lo:hi:spec.plot_step],
-                            spec).cpu().numpy()
+    return quantize_tile_db(db, spec).cpu().numpy()

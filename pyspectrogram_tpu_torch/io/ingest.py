@@ -1,9 +1,11 @@
-"""Prefetching host producer for the device copies.
+"""Prefetching host producers for the device copies — the port of
+pyspectrogram_tpu/io/ingest.py.
 
-The port's counterpart of pyspectrogram_tpu/io/ingest.py::PrefetchFeeder,
-without device placement: one worker thread runs ``produce(i)`` (the HDF5
-read and the plane packing) up to ``depth`` items ahead, and the consumer
-thread issues the host-to-device copies on its own current stream. The
+:func:`prefetch` runs ``produce(i)`` (the HDF5 read and the plane
+packing) on one worker thread up to ``depth`` items ahead; the request
+path's consumer thread issues the host-to-device copies on its own
+current stream. :class:`PrefetchFeeder` is the JAX module's feeder on it,
+its ``device_put`` a copy of each item's arrays to a torch device. The
 JAX feeder is not reused because its worker imports jax even with
 ``device_put=False`` (io/ingest.py:46), and this package never imports
 jax. :func:`stream_blocks` is the port of the JAX module's block feeder
@@ -14,9 +16,10 @@ from __future__ import annotations
 
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Union
 
 import numpy as np
+import torch
 
 
 def prefetch(produce: Callable[[int], object], n_items: int,
@@ -39,14 +42,68 @@ def prefetch(produce: Callable[[int], object], n_items: int,
                 f.cancel()
 
 
+def _put(item, device: torch.device):
+    """``item`` with every numpy array in it (the item itself, or a value
+    of a tuple, list or dict in it) copied to ``device``."""
+    if isinstance(item, np.ndarray):
+        return torch.from_numpy(item).to(device)
+    if isinstance(item, (tuple, list)):
+        return type(item)(_put(a, device) for a in item)
+    if isinstance(item, dict):
+        return {k: _put(v, device) for k, v in item.items()}
+    return item
+
+
+class PrefetchFeeder:
+    """The JAX module's feeder, on :func:`prefetch`: iterates
+    ``produce(0) .. produce(n_blocks - 1)`` with up to ``depth`` of them
+    produced ahead on a worker thread, a producer's exception raised at
+    the consumer after the items before it; :meth:`close` (or leaving a
+    ``with`` block) stops the worker.
+
+    ``device_put`` copies every numpy array of an item to a torch device
+    on the worker, so the copy overlaps the consumer's work: True for the
+    current CUDA device, a device (or its name), or False to yield the
+    host arrays.
+    """
+
+    def __init__(self, produce: Callable[[int], object], n_blocks: int,
+                 depth: int = 2,
+                 device_put: Union[bool, str, torch.device] = True):
+        self.produce = produce
+        self.n_blocks = n_blocks
+        self.device_put = device_put
+        device = (None if device_put is False else
+                  torch.device("cuda" if device_put is True else device_put))
+
+        def produce_put(i: int):
+            item = produce(i)
+            return item if device is None else _put(item, device)
+
+        self._items = prefetch(produce_put, n_blocks, depth=depth)
+
+    def __iter__(self) -> Iterator:
+        return self._items
+
+    def close(self) -> None:
+        self._items.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 def stream_blocks(ds, chan: str, start_sample: int, block_len: int,
-                  n_blocks: int, depth: int = 2) -> Iterator[np.ndarray]:
-    """Prefetching iterator of plane-major host blocks from a dataset:
+                  n_blocks: int, depth: int = 2) -> PrefetchFeeder:
+    """Prefetching feeder of plane-major host blocks from a dataset:
     yields (nsub*2, block_len) float32 (int16 for raw int16 captures)
     arrays, read and packed ``depth`` blocks ahead on a worker thread, for
     models.streaming.StreamingSti.push; the consumer copies each to its
-    device (models.sti.to_device). The produce function is the JAX
-    feeder's (io/ingest.py:94-117), on the port's own native ingest."""
+    device (models.sti.to_device) on its own stream. The produce function
+    is the JAX feeder's (io/ingest.py:94-117), on the port's own native
+    ingest."""
     from pyspectrogram_tpu_torch.models.sti import _assemblable
     from pyspectrogram_tpu_torch.native import ingest as native_ingest
 
@@ -56,4 +113,4 @@ def stream_blocks(ds, chan: str, start_sample: int, block_len: int,
         return native_ingest.assemble_plane_major(
             raw, np.asarray([0], np.int64), block_len)
 
-    return prefetch(produce, n_blocks, depth=depth)
+    return PrefetchFeeder(produce, n_blocks, depth=depth, device_put=False)

@@ -237,23 +237,32 @@ class StiPipeline:
                       sample_span: Optional[Tuple[int, int]] = None,
                       ) -> Tuple[int, int]:
         """The request's effective absolute sample span under the CURRENT
-        bounds (no refresh here — callers refresh first)."""
+        bounds (no refresh here — callers refresh first); on a mesh, the
+        bounds every rank agrees on (parallel.mesh.agree_bounds)."""
         if sample_span is not None:
             # sti_frame_starts spreads ntime starts over
             # [st, en - frame_len]: feeding last_start + frame_len back
             # reproduces the saved run's linspace endpoints exactly
             return (int(sample_span[0]),
                     int(sample_span[1]) + cfg.nfft * cfg.nint)
+        # on a mesh the ranks read the bounds at different moments: every
+        # rank takes the span they all see, so they compute (and the
+        # written loop skips) the same request
         if cfg.streaming:
             # trailing window anchored at the selected channel's data end,
             # its start clamped to the channel's data start
             lo, hi = self.ds.bnds[chan]
+            if self.mesh is not None:
+                lo, hi = pmesh.agree_bounds(self.mesh, int(lo), int(hi))
             end_time = float(hi / sr)
             st_time = max(float(lo / sr), end_time - cfg.stream_seconds)
         else:
             # a None side means that edge of the capture (utils.config)
-            st_time, end_time = resolve_time_span(cfg.time_span,
-                                                  self.ds.time_bnds)
+            bnds = self.ds.time_bnds
+            if self.mesh is not None:
+                bnds = pmesh.agree_bounds(self.mesh, float(bnds[0]),
+                                          float(bnds[1]))
+            st_time, end_time = resolve_time_span(cfg.time_span, bnds)
         return time_to_sample(st_time, sr), time_to_sample(end_time, sr)
 
     def request_key(self, cfg: SpectrogramConfig):

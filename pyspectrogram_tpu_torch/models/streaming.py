@@ -1,6 +1,6 @@
-"""Streaming STI on one torch device: blockwise overlap-save STFT + rolling
-ring — the port of pyspectrogram_tpu/models/streaming.py without the
-``mesh`` argument (chan sharding waits for torch.distributed).
+"""Streaming STI: blockwise overlap-save STFT + rolling ring — the port of
+pyspectrogram_tpu/models/streaming.py, on one torch device or, with
+``mesh``, sharded over the ``chan`` axis of a parallel.make_mesh mesh.
 
 Fixed-size plane-major sample blocks are pushed; each push computes only
 the new STI columns (a (frame_len - hop)-sample carry rides between
@@ -12,6 +12,13 @@ The push columns follow ops.stft.stream_impl: kernel B1 (B4 at nfft >=
 65536) for contiguous hops, kernel B3 for overlapping hops (B4 at the
 starts t*hop above 32768), ops.plain.psd_torch on the CPU or outside the
 kernels' range. Medians over more than 32 columns run kernel B2.
+
+On a mesh (SPMD: every rank makes the same calls) each rank holds its
+subchannels' carry and ring, nsub // chan of them, on its own device; the
+stream is replicated over ``time``. A push copies only the rank's rows of
+the block and makes no collective; every read path computes on the local
+ring (the median with B2 per rank) and gathers only its result over
+``chan``, so each rank returns the global host array the JAX caller gets.
 
 PyTorch runs eagerly, so the JAX class's jit caches are gone; the
 floor-pow2 median span ladder stays, because it decides which columns a
@@ -27,19 +34,31 @@ import numpy as np
 import torch
 
 from pyspectrogram_tpu_torch.display.tile import quantize_tile_linear
+from pyspectrogram_tpu_torch.models.sti import check_device, to_device
 from pyspectrogram_tpu_torch.ops import stft
 from pyspectrogram_tpu_torch.ops.plain import to_dbfs
 from pyspectrogram_tpu_torch.ops.windows import WindowSpec, get_window
+from pyspectrogram_tpu_torch.parallel import mesh as pmesh
+from pyspectrogram_tpu_torch.parallel.mesh import CHAN_AXIS
+
+#: sharding specs of the chan-sharded stream (the JAX class's
+#: _shardings): plane-major blocks and the carry shard their rows, the
+#: ring and a view their subchannel dim, a median its leading dim
+BLOCK_SPEC = (CHAN_AXIS, None)
+RING_SPEC = (None, CHAN_AXIS, None)
+MEDIAN_SPEC = (CHAN_AXIS, None)
 
 
 @dataclasses.dataclass
 class StreamState:
     """Streaming state: the carry and ring on the device, the column
-    counter on the host."""
+    counter on the host. On a mesh each rank holds its own chan slice of
+    the carry and ring (nsub_l = nsub // chan subchannels, rows 2s and
+    2s+1 of the carry for each) and the same counter."""
 
-    carry: torch.Tensor     # (nsub*2, frame_len - hop) float32 trailing
+    carry: torch.Tensor     # (nsub_l*2, frame_len - hop) float32 trailing
                             # samples, plane-major like every sample buffer
-    ring: torch.Tensor      # (ring_len, nsub, nfft) LINEAR power columns,
+    ring: torch.Tensor      # (ring_len, nsub_l, nfft) LINEAR power columns,
                             # column c at row c % ring_len (dB happens at
                             # the display edge so medians stay exact)
     total_cols: int         # columns produced since start, folded back by
@@ -60,6 +79,10 @@ class StreamingSti:
 
     Blocks are plane-major (nsub*2, block_len) float32 or int16 (row 2s =
     subchannel s real plane, row 2s+1 imag).
+
+    With ``mesh`` every rank constructs the stream with its own
+    ``device=mesh_device(mesh)`` and pushes the same global blocks; the
+    read paths return the global arrays on every rank.
     """
 
     #: column-counter fold threshold (the JAX class's, models/streaming.py
@@ -83,15 +106,32 @@ class StreamingSti:
         eps: float = 1e-15,
         precision: str = "exact",
         device: Union[str, torch.device],
+        mesh=None,
     ):
         """``precision`` is accepted for every tier: the float32 kernels
-        meet all three. ``device`` is required ("cuda", "cpu", ...)."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but torch "
-                               "sees no CUDA device")
+        meet all three. ``device`` is required ("cuda", "cpu", ...).
+
+        ``mesh`` (parallel.make_mesh) shards the stream over its ``chan``
+        axis: ``device`` must be this rank's mesh_device, and nsub must
+        divide by the chan axis size."""
+        self.device = check_device(device)
         self.nfft, self.nint, self.nsub = nfft, nint, nsub
         self.precision = precision
+        self.mesh = mesh
+        if mesh is not None:
+            pmesh.check_mesh_device(mesh, self.device)
+            ndev_c = pmesh.axis_size(mesh, CHAN_AXIS)
+            if nsub % ndev_c:
+                raise ValueError(
+                    f"nsub {nsub} must divide by the chan axis ({ndev_c})")
+            self._nsub_local = nsub // ndev_c
+            # this rank's block rows (local_shard over chan), found once:
+            # the push is host-bound, and the mesh lookups cost per call
+            c = pmesh.axis_index(mesh, CHAN_AXIS)
+            self._local_rows = slice(2 * self._nsub_local * c,
+                                     2 * self._nsub_local * (c + 1))
+        else:
+            self._nsub_local = nsub
         self.frame_len = nfft * nint
         self.hop = self.frame_len if hop is None else hop
         if self.hop <= 0 or self.hop > self.frame_len:
@@ -112,30 +152,81 @@ class StreamingSti:
         self._ref = float(ref)
 
     def init_state(self) -> StreamState:
+        """A zeroed state: this rank's slice on a mesh."""
         return StreamState(
-            carry=torch.zeros((self.nsub * 2, self.frame_len - self.hop),
+            carry=torch.zeros((self._nsub_local * 2,
+                               self.frame_len - self.hop),
                               dtype=torch.float32, device=self.device),
-            ring=torch.zeros((self.ring_len, self.nsub, self.nfft),
+            ring=torch.zeros((self.ring_len, self._nsub_local, self.nfft),
                              dtype=torch.float32, device=self.device),
             total_cols=0,
         )
 
+    def block_sharding(self):
+        """The sharding spec of a pushed block on the mesh (None without
+        one): its rows shard over ``chan``. A push takes the global block
+        and copies only this rank's rows (local_block)."""
+        return None if self.mesh is None else BLOCK_SPEC
+
+    def local_block(self, block):
+        """This rank's rows of a global plane-major block, host or device
+        (the block itself without a mesh); no copy, no communication."""
+        if self.mesh is None:
+            return block
+        return block[self._local_rows]
+
+    def _gather(self, local: torch.Tensor, spec) -> torch.Tensor:
+        """The global tensor of a per-rank result (itself without a
+        mesh): a gather over ``chan``."""
+        if self.mesh is None:
+            return local
+        return pmesh.assemble(local, self.mesh, spec)
+
+    def global_state(self, state: StreamState) -> StreamState:
+        """The whole stream's state on every rank (carry and ring gathered
+        over ``chan``; ``state`` itself without a mesh), as a checkpoint
+        stores it."""
+        return StreamState(carry=self._gather(state.carry, BLOCK_SPEC),
+                           ring=self._gather(state.ring, RING_SPEC),
+                           total_cols=state.total_cols)
+
+    def place_state(self, state: StreamState) -> StreamState:
+        """A global state (any device, a restored checkpoint's) as this
+        stream's state: this rank's chan slice of the carry and ring,
+        copied to the stream's device."""
+        carry, ring = state.carry, state.ring
+        if self.mesh is not None:
+            carry = pmesh.local_shard(carry, self.mesh, BLOCK_SPEC)
+            ring = pmesh.local_shard(ring, self.mesh, RING_SPEC)
+        return StreamState(carry=carry.contiguous().to(self.device),
+                           ring=ring.contiguous().to(self.device),
+                           total_cols=state.total_cols)
+
     def push(self, state: StreamState, block, return_db: bool = True
              ) -> Tuple[StreamState, Optional[torch.Tensor]]:
-        """Consume one plane-major (nsub*2, block_len) block; returns
-        (new_state, new dB columns (cols_per_block, nsub, nfft)), or
-        (new_state, None) with ``return_db=False`` (the hot ingest path,
-        which skips the dB pass).
+        """Consume one plane-major (nsub*2, block_len) block (host array or
+        tensor); returns (new_state, new dB columns (cols_per_block, nsub,
+        nfft)), or (new_state, None) with ``return_db=False`` (the hot
+        ingest path, which skips the dB pass).
+
+        On a mesh the block is the global one, as the JAX push takes it:
+        only this rank's rows are copied to its device, the columns are
+        computed on them with no collective, and the dB columns (with
+        ``return_db``) are gathered over ``chan``.
 
         Move semantics, as JAX's donated push on a TPU: the new columns
         are written into ``state.ring`` in place and the returned state
         shares that tensor, so the input state is consumed — snapshot or
         save a state BEFORE pushing from it if its old contents matter."""
         k, ring_len = self.cols_per_block, self.ring_len
-        block = torch.as_tensor(block, device=self.device)
         if tuple(block.shape) != (self.nsub * 2, self.block_len):
             raise ValueError(f"block of shape {tuple(block.shape)}, expected "
                              f"{(self.nsub * 2, self.block_len)}")
+        block = self.local_block(block)
+        if isinstance(block, torch.Tensor):
+            block = block.to(self.device)
+        else:
+            block = to_device(np.asarray(block), self.device)
         buf = torch.cat([state.carry, block.to(torch.float32)], dim=1)
         cols = stft.stream_columns(
             buf, k, nfft=self.nfft, nint=self.nint, hop=self.hop,
@@ -156,7 +247,9 @@ class StreamingSti:
             # ring_len) and min(total, ring_len)
             total -= self._fold_at - ring_len
         new = StreamState(carry=carry, ring=ring, total_cols=total)
-        return new, (to_dbfs(cols, self.eps) if return_db else None)
+        if not return_db:
+            return new, None
+        return new, self._gather(to_dbfs(cols, self.eps), RING_SPEC)
 
     def fold_total(self, total: int) -> int:
         """Counter value after ``total`` true columns: equal below the fold
@@ -188,7 +281,8 @@ class StreamingSti:
         """Host copy of the ring in dBFS (oldest column first; unfilled
         slots read as the eps floor) + valid count."""
         db = to_dbfs(self._ordered_ring(state), self.eps)
-        return db.cpu().numpy(), self.valid_cols(state)
+        return self._gather(db, RING_SPEC).cpu().numpy(), \
+            self.valid_cols(state)
 
     def snapshot_quantized(self, state: StreamState, spec
                            ) -> Tuple[np.ndarray, int]:
@@ -197,7 +291,8 @@ class StreamingSti:
         snapshot(), unfilled slots quantize the eps floor."""
         q = quantize_tile_linear(self._ordered_ring(state), spec, self.eps,
                                  spec.qparams)
-        return q.cpu().numpy(), self.valid_cols(state)
+        return self._gather(q, RING_SPEC).cpu().numpy(), \
+            self.valid_cols(state)
 
     def _span(self, n_valid: int, window: int, ladder: bool) -> int:
         """Median span while the window is still FILLING: the newest
@@ -210,8 +305,9 @@ class StreamingSti:
         return (1 << (n_valid.bit_length() - 1)) if ladder else n_valid
 
     def _median_db(self, state: StreamState, n: int) -> torch.Tensor:
-        """dBFS median (nsub, nfft) over the newest ``n`` columns, gathered
-        straight from rotated storage (row of column c is c % ring_len)."""
+        """dBFS median (nsub_l, nfft) of this rank's subchannels over the
+        newest ``n`` columns, taken straight from rotated storage (row of
+        column c is c % ring_len)."""
         rows = self._rows(state.total_cols - n + np.arange(n))
         sel = state.ring.index_select(0, rows)
         return to_dbfs(stft.median_over_time(sel), self.eps)
@@ -238,7 +334,8 @@ class StreamingSti:
         else:
             n = self._span(n_valid, min(self.ring_len, int(n_cols)),
                            span_ladder)
-        return self._median_db(state, n).cpu().numpy()
+        med = self._median_db(state, n)
+        return self._gather(med, MEDIAN_SPEC).cpu().numpy()
 
     # ------------------------------------------------- trailing-window view
     def strided_cols(self, state: StreamState, n_disp: int,
@@ -279,7 +376,8 @@ class StreamingSti:
         whose column index is negative (see strided_cols) read unwritten
         slots."""
         self._check_span(n_disp, stride)
-        return self._trailing_view(state, n_disp, stride, spec).cpu().numpy()
+        view = self._trailing_view(state, n_disp, stride, spec)
+        return self._gather(view, RING_SPEC).cpu().numpy()
 
     def refresh_view(self, state: StreamState, n_disp: int, stride: int,
                      spec=None, n_med: Optional[int] = None,
@@ -289,7 +387,21 @@ class StreamingSti:
         the median PSD over the newest ``n_med`` valid columns (riding the
         fill ladder, :meth:`_span`; ``span_ladder=False`` forces the exact
         count). Returns (view, med_db) as host arrays: ``view`` as in
-        :meth:`snapshot_strided`, ``med_db`` (nsub, nfft)."""
+        :meth:`snapshot_strided`, ``med_db`` (nsub, nfft). On a mesh each
+        rank computes both on its own subchannels (B2 on its local
+        window) and only they are gathered, never the ring."""
+        view, med = self.refresh_local(state, n_disp, stride, spec, n_med,
+                                       total_cols, span_ladder)
+        return (self._gather(view, RING_SPEC).cpu().numpy(),
+                self._gather(med, MEDIAN_SPEC).cpu().numpy())
+
+    def refresh_local(self, state: StreamState, n_disp: int, stride: int,
+                      spec=None, n_med: Optional[int] = None,
+                      total_cols: Optional[int] = None,
+                      span_ladder: bool = True):
+        """:meth:`refresh_view`'s (view, med_db) as this rank's device
+        tensors, (n_disp, nsub_l, ...) and (nsub_l, nfft), before the
+        gather (the live engine adds its tail rows to the view first)."""
         self._check_span(n_disp, stride)
         total = (int(total_cols) if total_cols is not None
                  else state.total_cols)
@@ -299,6 +411,14 @@ class StreamingSti:
         window = (min(self.ring_len, int(n_med)) if n_med is not None
                   else self.ring_len)
         n = self._span(n_valid, window, span_ladder)
-        view = self._trailing_view(state, n_disp, stride, spec)
-        med = self._median_db(state, n)
-        return view.cpu().numpy(), med.cpu().numpy()
+        return (self._trailing_view(state, n_disp, stride, spec),
+                self._median_db(state, n))
+
+    def gather_view(self, view: torch.Tensor) -> torch.Tensor:
+        """The global (rows, nsub, ...) view of this rank's (rows, nsub_l,
+        ...) rows (itself without a mesh)."""
+        return self._gather(view, RING_SPEC)
+
+    def gather_median(self, med: torch.Tensor) -> torch.Tensor:
+        """The global (nsub, nfft) median of this rank's (nsub_l, nfft)."""
+        return self._gather(med, MEDIAN_SPEC)

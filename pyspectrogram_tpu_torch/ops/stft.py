@@ -206,16 +206,22 @@ def _median_network(rows) -> torch.Tensor:
 
 
 def median_over_time(p: torch.Tensor,
-                     ntime_valid: Optional[int] = None) -> torch.Tensor:
+                     ntime_valid: Optional[int] = None,
+                     allow_pallas: bool = True) -> torch.Tensor:
     """Median across the leading (time) axis of (ntime, ..., nfft) — the
     reference's per-subchannel median PSD (drfProc.py:401). For even n it
     is the mean of the two middles, as np.median (torch.median returns the
-    lower middle). ``ntime_valid`` restricts to a leading prefix."""
+    lower middle). ``ntime_valid`` restricts to a leading prefix. Above 32
+    rows float32 takes kernel B2; ``allow_pallas=False`` (the JAX
+    package's switch for its median kernel) takes B2's plain version,
+    ops.plain.median_bisect, on a card too."""
     n = p.shape[0] if ntime_valid is None else int(ntime_valid)
     p = p[:n]
     if n <= MEDIAN_NETWORK_MAX_N:
         return _median_network(p[i] for i in range(n))
     if p.dtype == torch.float32:
+        if not allow_pallas:
+            return plain.median_bisect(p)
         return median_cuda.median_over_time_cuda(p)
     s = torch.sort(p, dim=0).values
     if n % 2:
@@ -390,6 +396,26 @@ def stream_columns(buf_pm: torch.Tensor, k: int, *, nfft: int, nint: int,
 
 
 @functools.lru_cache(maxsize=256)
+def make_xla_psd(
+    *,
+    nfft: int,
+    nint: int = 1,
+    mode: str = "welch",
+    window: WindowSpec = ("kaiser", 1.7),
+    ref: float = 1.0,
+):
+    """The plain PSD step body, the JAX package's name for it: plane-major
+    samples + frame starts -> fftshifted LINEAR power (ntime, nsub, nfft)
+    by torch.fft (ops.plain.psd_torch with these knobs bound), kernel B1's
+    plain version."""
+
+    def xla_psd(samples_pm, starts):
+        return psd_torch(samples_pm, starts, nfft=nfft, nint=nint,
+                         mode=mode, window=window, ref=ref)
+
+    return xla_psd
+
+
 def make_sti_fn_pm(
     *,
     nfft: int,

@@ -18,7 +18,8 @@ JAX host holds it before ``device_put``) with no communication, and
 JAX caller gets from ``np.asarray`` of a sharded array.
 
 The collectives (:func:`all_gather`, :func:`all_reduce`,
-:func:`all_to_all`) live here and nowhere else. The process group's
+:func:`all_to_all`, and on them :func:`agree_bounds`, :func:`every_rank`
+and :func:`barrier`) live here and nowhere else. The process group's
 backend, read once per call with ``dist.get_backend``, picks the route: on
 NCCL they take the tensors on the rank's device; on gloo, a host transport
 (the CPU tests, and several ranks sharing one card), they copy through host
@@ -191,6 +192,48 @@ def all_reduce(x: torch.Tensor, mesh, axis: str, op: str = "sum"
     buf = x.detach().to("cpu" if host else x.device, copy=True)
     dist.all_reduce(buf, op=ops[op], group=group)
     return buf.to(x.device)
+
+
+def _mesh_min(mesh, values, dtype: torch.dtype) -> list:
+    """Elementwise minimum of the numbers ``values`` over every rank of
+    ``mesh``: one :func:`all_reduce` per axis (an axis of one rank makes
+    no call)."""
+    if mesh.size() == 1:
+        return list(values)
+    t = torch.tensor(values, dtype=dtype, device=mesh_device(mesh))
+    for axis in mesh.mesh_dim_names:
+        t = all_reduce(t, mesh, axis, "min")
+    return t.tolist()
+
+
+def agree_bounds(mesh, lo, hi):
+    """(max ``lo``, min ``hi``) over every rank of ``mesh``: the span every
+    rank can see. SPMD ranks read a growing capture's bounds at different
+    moments, where the JAX controller reads them once, so a decision that
+    gates a collective (the blocks to push, a backlog restart, the tail's
+    length, a request's span) is taken on agreed bounds, or one rank
+    pushes a block the others do not and the next gather hangs. Integers
+    agree as int64, floats (a capture's time bounds) as float64. A 1x1
+    mesh makes no call."""
+    dtype = (torch.float64 if isinstance(lo, float) or isinstance(hi, float)
+             else torch.int64)
+    neg_lo, hi = _mesh_min(mesh, [-lo, hi], dtype)
+    return -neg_lo, hi
+
+
+def every_rank(mesh, flag: bool) -> bool:
+    """Whether ``flag`` holds on every rank of ``mesh`` (a logical and over
+    the mesh): a per-rank observation that decides whether the ranks run a
+    collective (the written loop's skip of an unchanged request) is taken
+    together. A 1x1 mesh makes no call."""
+    return _mesh_min(mesh, [int(flag)], torch.int64)[0] == 1
+
+
+def barrier(mesh) -> None:
+    """Wait until every rank of ``mesh`` (the whole default group) arrives
+    here; a 1x1 mesh makes no call."""
+    if mesh.size() > 1:
+        dist.barrier()
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,

@@ -1,5 +1,6 @@
-"""Incremental live-streaming engine on one torch device: O(delta) work per
-refresh — the port of pyspectrogram_tpu/runtime/live.py without ``mesh``.
+"""Incremental live-streaming engine: O(delta) work per refresh — the port
+of pyspectrogram_tpu/runtime/live.py, on one torch device or, with
+``mesh``, chan-sharded over the ranks of a parallel.make_mesh mesh.
 
 The engine keeps a :class:`~pyspectrogram_tpu_torch.models.streaming.
 StreamingSti` ring + carry across ticks and, per tick, reads ONLY the
@@ -14,6 +15,16 @@ from pinned memory, non-blocking), and serves the display from the ring:
 
 The engine is rebuilt only when a SHAPE knob changes (:func:`_signature`);
 color-range and freq-window changes are display-edge knobs.
+
+On a mesh every rank runs the same engine over its own reader (SPMD) and
+holds its subchannels' ring and carry (models.streaming). Where the JAX
+controller reads a growing capture's bounds once per tick, the ranks read
+them at different moments, so every decision that gates a collective (the
+blocks to push, a backlog restart, the tail's length) is taken on the
+bounds all ranks agree on (parallel.mesh.agree_bounds). A push copies
+only the rank's rows; a tick gathers the view (ring rows and tail rows
+together) and the median over ``chan``; a save gathers the ring and carry
+and global rank 0 writes the one-device file.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from pyspectrogram_tpu_torch.models.streaming import StreamingSti
 from pyspectrogram_tpu_torch.native import ingest as native_ingest
 from pyspectrogram_tpu_torch.ops import stft
 from pyspectrogram_tpu_torch.ops.plain import to_dbfs
+from pyspectrogram_tpu_torch.parallel import mesh as pmesh
 from pyspectrogram_tpu_torch.runtime import checkpoint
 from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig
 
@@ -76,14 +88,15 @@ def _plane_major(raw: np.ndarray, isub: Optional[int], n: int) -> np.ndarray:
 
 class LiveStreamEngine:
     """One channel's incremental trailing-window stream over a (possibly
-    growing) dataset, on one torch device.
+    growing) dataset, on one torch device or chan-sharded over ``mesh``
+    (every rank then passes its mesh_device and gets the whole result).
 
     >>> eng = LiveStreamEngine(ds, cfg, device="cuda")
     >>> res = eng.tick(cfg)    # push new samples, return an StiResult
     """
 
     def __init__(self, ds: RFDataset, cfg: SpectrogramConfig,
-                 device: Union[str, torch.device],
+                 device: Union[str, torch.device], mesh=None,
                  target_block_samples: int = TARGET_BLOCK_SAMPLES,
                  cols_per_block: Optional[int] = None,
                  init_device_state: bool = True):
@@ -96,6 +109,7 @@ class LiveStreamEngine:
         full rings on the device during a large-window resume)."""
         self.ds = ds
         self.device = torch.device(device)
+        self.mesh = mesh
         self.sig = _signature(cfg)
         chan, isub = ds._split_entry(cfg.channel or ds.channels[0])
         self.chan, self.isub = chan, isub
@@ -121,7 +135,7 @@ class LiveStreamEngine:
         # than the initially-available data (frame-aware: a block of k
         # columns needs carry_len + k*hop samples) so short/young
         # captures still surface columns block by block
-        lo, hi = ds.bnds[chan]
+        lo, hi = self._bounds()
         if cols_per_block is not None:
             k = int(cols_per_block)
         else:
@@ -145,7 +159,7 @@ class LiveStreamEngine:
             nfft=cfg.nfft, nint=cfg.nint, nsub=self.nsub,
             block_len=self.block_len, hop=self.hop, ring_len=ring_len,
             mode=cfg.mode, window=cfg.window, ref=self.ref, eps=cfg.eps,
-            precision=cfg.precision, device=self.device,
+            precision=cfg.precision, device=self.device, mesh=mesh,
         )
         self.state = self.sti.init_state() if init_device_state else None
         # the unfolded count of pushed columns (the state's counter folds)
@@ -167,6 +181,13 @@ class LiveStreamEngine:
         if init_device_state and self.carry_len:
             self._seed_carry()
 
+    def _bounds(self):
+        """The channel's (first, last) sample, agreed over the mesh."""
+        lo, hi = self.ds.bnds[self.chan]
+        if self.mesh is None:
+            return lo, hi
+        return pmesh.agree_bounds(self.mesh, int(lo), int(hi))
+
     def _read(self, start: int, n: int):
         """(plane-major block, sample mask) of ``n`` samples at ``start``."""
         raw, mask = self.ds.reader.read_vector_raw(start, n, self.chan,
@@ -179,7 +200,8 @@ class LiveStreamEngine:
         [start_sample, start_sample + frame_len) with real data (reads
         before the capture start zero-fill and flag the gap mask)."""
         pm, mask = self._read(self.start_sample, self.carry_len)
-        self.state.carry = to_device(pm.astype(np.float32), self.device)
+        self.state.carry = to_device(
+            self.sti.local_block(pm).astype(np.float32), self.device)
         self._carry_mask = mask
         self.samples_read += self.carry_len
 
@@ -197,7 +219,13 @@ class LiveStreamEngine:
         """Checkpoint the live session between ticks: the ring + carry plus
         the host read cursor, so :meth:`resume` continues at the exact
         next sample with no recompute. The file is the JAX engine's
-        format; either package resumes it."""
+        format; either package resumes it, on one device or a mesh.
+
+        On a mesh every rank calls this: the ring and carry are gathered
+        over ``chan``, global rank 0 writes the file the one-device engine
+        writes, and the ranks meet at a barrier before returning its
+        path."""
+        state = self.sti.global_state(self.state)
         meta = {
             "kind": "live_stream",
             # json round-trip now so resume() compares like with like
@@ -208,23 +236,33 @@ class LiveStreamEngine:
             "samples_read": int(self.samples_read),
             "cols_per_block": int(self.cols_per_block),
         }
-        return checkpoint.save_stream_state(
-            path, self.state, meta,
-            extra_arrays={"col_mask": self.col_mask,
-                          "carry_mask": self._carry_mask})
+        extra = {"col_mask": self.col_mask, "carry_mask": self._carry_mask}
+        if self.mesh is None:
+            return checkpoint.save_stream_state(path, state, meta, extra)
+        if torch.distributed.get_rank() == 0:
+            path = checkpoint.save_stream_state(path, state, meta, extra)
+        else:
+            path = checkpoint._npz_path(path)
+        pmesh.barrier(self.mesh)
+        return path
 
     @classmethod
     def resume(cls, ds: RFDataset, cfg: SpectrogramConfig, path,
-               device: Union[str, torch.device]) -> "LiveStreamEngine":
+               device: Union[str, torch.device],
+               mesh=None) -> "LiveStreamEngine":
         """Rebuild an engine from a :meth:`save` checkpoint (of either
-        package) on ``device`` and continue the stream: the next tick
-        reads from the saved cursor."""
-        state, meta = checkpoint.load_stream_state(path, device)
+        package, one-device or meshed) on ``device`` and continue the
+        stream: the next tick reads from the saved cursor. With ``mesh``
+        every rank loads the file and keeps its chan slice of the ring and
+        carry, so the session resumes sharded."""
+        # the whole state on the host first: the refusals see its global
+        # shapes, then only this rank's slice is copied to the device
+        state, meta = checkpoint.load_stream_state(path, "cpu")
         if meta.get("kind") != "live_stream":
             raise ValueError(
                 f"{path} is not a live-stream checkpoint "
                 f"(kind={meta.get('kind')!r})")
-        eng = cls(ds, cfg, device,
+        eng = cls(ds, cfg, device, mesh=mesh,
                   cols_per_block=int(meta["cols_per_block"]),
                   init_device_state=False)
         saved_sig = meta["signature"]
@@ -255,7 +293,7 @@ class LiveStreamEngine:
                 f"({state.total_cols}) disagrees with "
                 f"the host cursor ({meta['total_cols']}) — the state was "
                 "saved mid-tick; re-save from a quiesced session")
-        eng.state = state
+        eng.state = eng.sti.place_state(state)
         eng.total_cols = int(meta["total_cols"])
         eng.start_sample = int(meta["start_sample"])
         eng.next_sample = int(meta["next_sample"])
@@ -270,8 +308,10 @@ class LiveStreamEngine:
 
     # ---------------------------------------------------------------- ingest
     def _push_new(self) -> int:
-        """Read + push every complete new block; returns blocks pushed."""
-        lo, hi = self.ds.bnds[self.chan]
+        """Read + push every complete new block; returns blocks pushed.
+        On a mesh the bounds are the agreed ones, so every rank pushes the
+        same blocks."""
+        lo, hi = self._bounds()
         behind = hi + 1 - self.next_sample
         max_backlog = self.window_cols * self.hop
         if behind > max_backlog + self.block_len:
@@ -296,8 +336,8 @@ class LiveStreamEngine:
             if self.carry_len:
                 self._carry_mask = m[len(m) - self.carry_len:]
             self.samples_read += self.block_len
-            self.state, _ = self.sti.push(
-                self.state, to_device(pm, self.device), return_db=False)
+            # the push copies only this rank's rows to its device
+            self.state, _ = self.sti.push(self.state, pm, return_db=False)
             self.total_cols += self.cols_per_block
             self.next_sample += self.block_len
             n_blocks += 1
@@ -322,8 +362,9 @@ class LiveStreamEngine:
 
         Returns (rows, cols, mask) continuing tick()'s stride grid
         (absolute column j displayed iff (j - total + 1) % stride == 0),
-        or (None, None, None) when nothing lands on the grid. The median
-        stays ring-only."""
+        or (None, None, None) when nothing lands on the grid; ``rows`` is
+        a device tensor of this rank's subchannels (tick() gathers it with
+        the ring's view). The median stays ring-only."""
         pending = self._tail_pending
         grid = np.arange(stride - 1, pending, stride, dtype=np.int64)
         if len(grid) == 0:
@@ -343,7 +384,7 @@ class LiveStreamEngine:
             self.tail_samples_read += span
             # pad to a pow2 column count, as the JAX engine's tail does
             n = 1 << (pending - 1).bit_length()
-            pm = np.pad(pm.astype(np.float32),
+            pm = np.pad(self.sti.local_block(pm).astype(np.float32),
                         ((0, 0), (0, (n - pending) * self.hop)))
             cfg = self._cfg
             p = stft.stream_columns(
@@ -351,12 +392,13 @@ class LiveStreamEngine:
                 hop=self.hop, mode=cfg.mode, window=cfg.window, ref=self.ref)
             view = (to_dbfs(p, cfg.eps) if spec is None
                     else quantize_tile_linear(p, spec, cfg.eps, spec.qparams))
-            rows = view.cpu().numpy()[:pending]
+            rows = view[:pending]
             colmask = self._col_valid(mask, pending)
             self._tail_cache_key = key
             self._tail_cache = (rows, colmask)
         cols = self.total_cols + grid
-        return rows[grid], cols, colmask[grid]
+        return (rows[torch.from_numpy(grid).to(rows.device)], cols,
+                colmask[grid])
 
     # --------------------------------------------------------------- display
     def tick(self, cfg: SpectrogramConfig) -> Optional[StiResult]:
@@ -383,10 +425,10 @@ class LiveStreamEngine:
             spec = make_tile_spec(freqs, cfg.freq_window_khz,
                                   cfg.color_range_db)
         tile = plot_freqs = sxx_dbfs = None
-        view, med = self.sti.refresh_view(
+        view, med = self.sti.refresh_local(
             self.state, n_disp, stride, spec=spec, n_med=W,
             total_cols=total)
-        view = view[keep]
+        view = view[torch.from_numpy(keep).to(view.device)]
         kept_cols = cols[keep]
         mask = self.col_mask[kept_cols % self.sti.ring_len]
         if self._tail_pending:
@@ -395,9 +437,12 @@ class LiveStreamEngine:
             # appears in the tick it completes
             t_rows, t_cols, t_mask = self._tail_view(spec, stride)
             if t_rows is not None:
-                view = np.concatenate([view, t_rows], axis=0)
+                view = torch.cat([view, t_rows])
                 kept_cols = np.concatenate([kept_cols, t_cols])
                 mask = np.concatenate([mask, t_mask])
+        # one gather of the ring's and the tail's rows, one of the median
+        view = self.sti.gather_view(view).cpu().numpy()
+        med = self.sti.gather_median(med).cpu().numpy()
         if spec is not None:
             tile, plot_freqs = view, tile_freqs(spec, freqs)
         else:
@@ -421,14 +466,16 @@ class LiveStreamEngine:
 class _EngineSlot:
     """Processor-side holder: rebuilds the engine when the config's shape
     signature changes (a new ring is the correct semantics for a shape
-    change)."""
+    change); ``mesh`` chan-shards the engine's ring."""
 
     ds: RFDataset
     device: Union[str, torch.device]
+    mesh: object = None
     engine: Optional[LiveStreamEngine] = None
 
     def tick(self, cfg: SpectrogramConfig) -> Optional[StiResult]:
         sig = _signature(cfg)
         if self.engine is None or self.engine.sig != sig:
-            self.engine = LiveStreamEngine(self.ds, cfg, self.device)
+            self.engine = LiveStreamEngine(self.ds, cfg, self.device,
+                                           mesh=self.mesh)
         return self.engine.tick(cfg)

@@ -1,5 +1,7 @@
-"""Worker-loop processor on one torch device — the port of
-pyspectrogram_tpu/runtime/processor.py without ``mesh``.
+"""Worker-loop processor — the port of pyspectrogram_tpu/runtime/
+processor.py, on one torch device or, with ``mesh``, over the ranks of a
+parallel.make_mesh mesh (SPMD: every rank runs the same processor on its
+own thread and gets the whole result).
 
 Behaviour parity with the JAX processor (and through it with the
 reference's ``DrfProcessor`` worker, drfProc.py:209-361):
@@ -21,7 +23,9 @@ reference's ``DrfProcessor`` worker, drfProc.py:209-361):
 
 The device work of an iteration is launched on the calling thread's
 current CUDA stream: tabs on several threads serialize on the card, as
-they do on one TPU.
+they do on one TPU. On a mesh each rank's loop makes the same collectives
+in the same order, so whether an iteration recomputes or re-emits its
+cached result is decided by every rank together (:meth:`_unchanged`).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 
 from pyspectrogram_tpu_torch.io.reader import RFDataset
 from pyspectrogram_tpu_torch.models.sti import StiPipeline, check_device
+from pyspectrogram_tpu_torch.parallel import mesh as pmesh
 from pyspectrogram_tpu_torch.runtime.live import LiveStreamEngine, _EngineSlot
 from pyspectrogram_tpu_torch.runtime.signals import (
     Iterated,
@@ -72,6 +77,7 @@ class SpectrogramProcessor:
         scheduler=None,
         *,
         device: Union[str, torch.device],
+        mesh=None,
     ):
         """``drfdir`` is a Digital RF directory, as in the JAX package.
         As a test seam it may also be an already opened RFDataset (such as
@@ -81,6 +87,11 @@ class SpectrogramProcessor:
 
         ``device`` ("cuda", "cpu", ...) is required, as for StiPipeline;
         a CUDA device on a machine without one raises here.
+
+        ``mesh`` (parallel.make_mesh; ``device`` then this rank's
+        mesh_device) runs every iteration over the mesh's ranks: written
+        mode through StiPipeline(mesh=), streaming mode on a chan-sharded
+        live ring (LiveStreamEngine(mesh=)).
 
         ``scheduler`` (a runtime.scheduler.SharedRefreshScheduler) makes
         written-mode ``start()`` register with the shared refresh loop
@@ -123,7 +134,8 @@ class SpectrogramProcessor:
             return
         try:
             self.ds = drfdir if opened else RFDataset(drfdir)
-            self.pipeline = StiPipeline(self.ds, self._config, self.device)
+            self.pipeline = StiPipeline(self.ds, self._config, self.device,
+                                        mesh=mesh)
         except Exception as e:
             # the dir exists but opening it failed: report the real error,
             # not the blanket missing-path code
@@ -132,7 +144,8 @@ class SpectrogramProcessor:
                             detail=f"Failed to open the dataset: {e}")
             return
         # live mode is incremental: a ring + carry persist across ticks
-        self._live = _EngineSlot(self.ds, self.device) if streaming else None
+        self._live = (_EngineSlot(self.ds, self.device, mesh=mesh)
+                      if streaming else None)
         self.chan_listing = list(self.ds.chan_2sub)
         self.sub_chan_list = list(self.ds.chan_entries)
         self.is_running = True
@@ -183,7 +196,7 @@ class SpectrogramProcessor:
                     # and recomputing it; the compute skips its own bounds
                     # refresh (this loop just refreshed)
                     key = self.pipeline.request_key(cfg)
-                    if key == self._last_key and self._last_result is not None:
+                    if self._unchanged(key):
                         result = self._last_result
                         self.skipped_recomputes += 1
                     else:
@@ -294,7 +307,8 @@ class SpectrogramProcessor:
         if getattr(self, "_live", None) is None:
             raise ValueError("preload_live_state requires streaming mode")
         self._live.engine = LiveStreamEngine.resume(
-            self.ds, self.config, path, self.device)
+            self.ds, self.config, path, self.device,
+            mesh=self.pipeline.mesh)
 
     def join(self, timeout: Optional[float] = None) -> None:
         if self._thread is not None:
@@ -305,6 +319,16 @@ class SpectrogramProcessor:
             self._scheduler.drain(self, timeout)
 
     # ------------------------------------------------------------ internal
+    def _unchanged(self, key) -> bool:
+        """Whether the written request ``key`` (StiPipeline.request_key)
+        is the last computed one, so its cached result is re-emitted; on
+        a mesh only when it is so on every rank, so the ranks skip or
+        recompute together."""
+        same = key == self._last_key and self._last_result is not None
+        if self.pipeline.mesh is None:
+            return same
+        return pmesh.every_rank(self.pipeline.mesh, same)
+
     def _emit_iterated(self, i: int, result) -> None:
         """One Iterated payload from an StiResult (shared by run() and the
         scheduler's delivery)."""

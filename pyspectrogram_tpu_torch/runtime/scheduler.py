@@ -14,7 +14,8 @@ each cycle it
    plan in tile mode — and runs each group of >= 2 as ONE
    models.batch.BatchedStiPipeline launch; singletons run their own
    pipeline, as a standalone processor would, and so does every member of
-   a group whose merged launch raised.
+   a group whose merged launch raised, and every meshed tab (it keeps
+   its own sharded dispatch).
 
 Processors opt in via ``SpectrogramProcessor(..., scheduler=...)``:
 ``start()`` then registers with the scheduler instead of spawning a
@@ -131,7 +132,7 @@ class SharedRefreshScheduler:
             except Exception:
                 self._fail(p)
                 continue
-            if key == p._last_key and p._last_result is not None:
+            if p._unchanged(key):
                 # unchanged request: re-emit the cached result
                 p.skipped_recomputes += 1
                 self._deliver(p, p._last_result)
@@ -151,12 +152,13 @@ class SharedRefreshScheduler:
     # ------------------------------------------------------------ grouping
     @staticmethod
     def _group_key(p, cfg):
-        """Hashable batch-compatibility key; None = never batch. Equal
-        keys fold into one BatchedStiPipeline launch: equal shape knobs,
-        subchannel counts and device, plus — in tile mode — an equal crop
-        plan (sample rate + frequency window). The JAX key's mesh branch
-        has no counterpart: the port's pipelines run on one device, so
-        every pipeline may batch."""
+        """Hashable batch-compatibility key; None = never batch (a meshed
+        pipeline keeps its own sharded dispatch, as in the JAX package).
+        Equal keys fold into one BatchedStiPipeline launch: equal shape
+        knobs, subchannel counts and device, plus — in tile mode — an
+        equal crop plan (sample rate + frequency window)."""
+        if p.pipeline.mesh is not None:
+            return None
         try:
             chan, isub = p.pipeline.channel_of(cfg)
             nsub = 1 if isub is not None else len(p.ds.chan_2sub[chan])

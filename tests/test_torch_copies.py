@@ -23,6 +23,7 @@ import dataclasses
 import datetime
 import inspect
 import re
+import time
 from fractions import Fraction
 from pathlib import Path
 
@@ -509,3 +510,132 @@ def test_headless_kit_runs_the_window_smoke_path(tmp_path, monkeypatch):
     st.processor.join(10)
     assert not st.processor.is_running
     assert kit.QMessageBox.journal == [] and win.close()
+
+
+# ------------------------------------------- the JAX package's stray names
+def test_prefetch_feeder_is_the_jax_feeder():
+    """io.ingest.PrefetchFeeder: the JAX feeder's signature, items in
+    order, a producer's error raised at the consumer after the items
+    before it, close() and the context manager; ``device_put`` copies to
+    a torch device; stream_blocks returns one, as the JAX module's does."""
+    import torch
+
+    from pyspectrogram_tpu.io import ingest as jio
+    from pyspectrogram_tpu_torch.io import ingest as io
+
+    sig, jsig = (inspect.signature(c.__init__) for c in (
+        io.PrefetchFeeder, jio.PrefetchFeeder))
+    assert [(p.name, p.default) for p in sig.parameters.values()] == \
+        [(p.name, p.default) for p in jsig.parameters.values()]
+    assert inspect.signature(io.stream_blocks).parameters.keys() == \
+        inspect.signature(jio.stream_blocks).parameters.keys()
+
+    def boom(i):
+        if i == 2:
+            raise RuntimeError("io failed")
+        return i
+
+    for feeder in (io.PrefetchFeeder, jio.PrefetchFeeder):
+        assert list(feeder(lambda i: i * 10, 5, depth=2,
+                           device_put=False)) == [0, 10, 20, 30, 40]
+        got = []
+        with pytest.raises(RuntimeError, match="io failed"):
+            for item in feeder(boom, 5, depth=1, device_put=False):
+                got.append(item)
+        assert got == [0, 1]
+        made = []
+
+        def counting(i):
+            made.append(i)
+            return i
+
+        with feeder(counting, 100, depth=1, device_put=False) as f:
+            first = next(iter(f))
+        n_closed = len(made)
+        time.sleep(0.5)
+        # closed: the worker made at most the item ahead and stopped
+        assert first == 0 and n_closed <= 3 and len(made) == n_closed
+    a = np.arange(6, dtype=np.float32).reshape(2, 3)
+    items = list(io.PrefetchFeeder(lambda i: (a + i, {"k": a}), 2,
+                                   device_put="cpu"))
+    assert isinstance(items[1][0], torch.Tensor)
+    np.testing.assert_array_equal(items[1][0].numpy(), a + 1)
+    assert isinstance(items[0][1]["k"], torch.Tensor)
+
+
+def test_quantize_tile_db_is_the_jax_epilogue():
+    """display.tile.quantize_tile_db: crop, decimate, quantize dBFS to the
+    uint8 tile, the JAX function's levels on the same values, with the
+    spec's colour range or a qparams override."""
+    import jax.numpy as jnp
+    import torch
+
+    rng = np.random.default_rng(4)
+    db = rng.uniform(-130.0, 10.0, (5, 2, 1024)).astype(np.float32)
+    freqs = np.fft.fftshift(np.fft.fftfreq(1024, 1e-6))
+    spec = tile.make_tile_spec(freqs, (-200.0, 150.0), (-110.0, -20.0))
+    jspec = jtile.make_tile_spec(freqs, (-200.0, 150.0), (-110.0, -20.0))
+    other = tile.make_tile_spec(freqs, (-200.0, 150.0), (-90.0, 0.0))
+    for qp in (None, other.qparams):
+        got = tile.quantize_tile_db(torch.from_numpy(db), spec, qp).numpy()
+        want = np.asarray(jtile.quantize_tile_db(jnp.asarray(db), jspec, qp))
+        assert got.dtype == np.uint8 and got.shape == (5, 2, spec.plot_n)
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tile.tile_from_db(torch.from_numpy(db),
+                                                    spec),
+                                  tile.tile_from_db(db, spec))
+
+
+@pytest.mark.parametrize("mode,nint", [("welch", 2), ("parity", 3)])
+def test_make_xla_psd_is_the_plain_psd(mode, nint):
+    """ops.stft.make_xla_psd: the JAX factory's signature and, on the same
+    samples and starts, its linear power (float32 FFTs: 1e-5 of the
+    peak); it is ops.plain.psd_torch with the knobs bound."""
+    import jax.numpy as jnp
+    import torch
+
+    from pyspectrogram_tpu.ops import stft as jstft
+    from pyspectrogram_tpu_torch.ops import plain, stft
+
+    assert inspect.signature(stft.make_xla_psd) == \
+        inspect.signature(jstft.make_xla_psd)
+    rng = np.random.default_rng(6)
+    pm = rng.standard_normal((4, 64 * nint * 6 + 40)).astype(np.float32)
+    starts = np.linspace(0, pm.shape[1] - 64 * nint, 6).astype(np.int32)
+    kw = dict(nfft=64, nint=nint, mode=mode, window="hann", ref=2.0)
+    got = stft.make_xla_psd(**kw)(torch.from_numpy(pm),
+                                  torch.from_numpy(starts)).numpy()
+    want = np.asarray(jstft.make_xla_psd(**kw)(jnp.asarray(pm),
+                                               jnp.asarray(starts)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * want.max())
+    np.testing.assert_array_equal(got, plain.psd_torch(
+        torch.from_numpy(pm), torch.from_numpy(starts), **kw).numpy())
+
+
+def test_median_over_time_takes_allow_pallas(monkeypatch):
+    """ops.stft.median_over_time(allow_pallas=False), the JAX keyword:
+    the plain route (ops.plain.median_bisect) and never kernel B2, equal
+    to np.median bit for bit, as the kernel route is."""
+    import torch
+
+    from pyspectrogram_tpu.ops import stft as jstft
+    from pyspectrogram_tpu_torch.kernels import median_cuda
+    from pyspectrogram_tpu_torch.ops import stft
+
+    assert [(p.name, p.default) for p in inspect.signature(
+        stft.median_over_time).parameters.values()] == [
+        (p.name, p.default) for p in inspect.signature(
+            jstft.median_over_time).parameters.values()]
+    p = np.random.default_rng(8).exponential(size=(40, 2, 64)).astype(
+        np.float32)
+    want = np.median(p, axis=0)
+    kernel = stft.median_over_time(torch.from_numpy(p)).numpy()
+
+    def no_kernel(*a, **k):
+        raise AssertionError("kernel B2 called with allow_pallas=False")
+
+    monkeypatch.setattr(median_cuda, "median_over_time_cuda", no_kernel)
+    plain_route = stft.median_over_time(torch.from_numpy(p),
+                                        allow_pallas=False).numpy()
+    for got in (kernel, plain_route):
+        np.testing.assert_array_equal(got, want)

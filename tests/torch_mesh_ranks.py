@@ -1,5 +1,6 @@
 """The rank side of the port's multi-rank CPU tests (test_torch_parallel.py,
-test_torch_big_sti.py): :func:`spawn` starts WORLD gloo ranks with
+test_torch_big_sti.py, test_torch_streaming_mesh.py,
+test_torch_live_mesh.py): :func:`spawn` starts WORLD gloo ranks with
 torch.multiprocessing (spawn), each rank runs every case of one suite on a
 ``DeviceMesh`` of the CPU and pickles its results, and the test files hold
 them against the JAX package's functions, one test per case
@@ -26,14 +27,22 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from pyspectrogram_tpu_torch.display.tile import make_tile_spec
+from pyspectrogram_tpu_torch.io.memory import MemoryDataset
 from pyspectrogram_tpu_torch.io.reader import RFDataset
 from pyspectrogram_tpu_torch.kernels import sti_cuda
 from pyspectrogram_tpu_torch.models import batch, sti
+from pyspectrogram_tpu_torch.models.streaming import StreamingSti
 from pyspectrogram_tpu_torch.ops import stft
 from pyspectrogram_tpu_torch.parallel import big_sti, dist_fft
 from pyspectrogram_tpu_torch.parallel import mesh as pmesh
 from pyspectrogram_tpu_torch.parallel import sharded
 from pyspectrogram_tpu_torch.parallel.mesh import CHAN_AXIS, TIME_AXIS
+from pyspectrogram_tpu_torch.runtime import (
+    LiveStreamEngine,
+    ProcessorCallbacks,
+    SharedRefreshScheduler,
+    SpectrogramProcessor,
+)
 from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig
 
 #: ranks per spawn, as the JAX side's meshes of jax.devices()[:4]
@@ -653,4 +662,357 @@ SUITES["big"] = [
     ("bigfft_tile", case_bigfft_tile),
     *[(f"big_pipeline_{k}", _big_pipeline_case(k)) for k in BIG_PIPELINES],
     ("tier_choice", case_tier_choice),
+]
+
+
+# ---------------------------------------------------------- suite "stream"
+#: the streaming meshes: (time, chan); nsub equals the chan size, so a rank
+#: holds one subchannel (JAX's tests shard chan 4 ways)
+STREAM_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+#: the streaming cases (tests/test_streaming.py:156-305, 537-552): the
+#: StreamingSti knobs, the pushes, the blocks' seed, and the view read
+#: after them, (n_disp, stride, n_med); "bisect" takes a median of 40
+#: columns (kernel B2's plain version, not the sorting network)
+STREAMS = {
+    "push": (dict(nfft=128, block_len=512, ring_len=8), 5, 11, (4, 2, 6)),
+    "overlap": (dict(nfft=128, hop=64, block_len=512, ring_len=16), 4, 23,
+                (6, 2, 8)),
+    "bisect": (dict(nfft=64, block_len=512, ring_len=48), 6, 21,
+               (6, 2, 40)),
+    "refresh": (dict(nfft=128, block_len=512, ring_len=16), 3, 55,
+                (6, 2, 8)),
+}
+
+
+def stream_blocks_of(key: str, nsub: int) -> list:
+    """The pushed plane-major (nsub*2, block_len) float32 blocks of a
+    streaming case, made from its seed."""
+    kw, n_push, seed, _ = STREAMS[key]
+    rng = np.random.default_rng(seed)
+    return [(0.1 * rng.standard_normal((nsub * 2, kw["block_len"])))
+            .astype(np.float32) for _ in range(n_push)]
+
+
+def stream_spec(nfft: int):
+    """The streaming cases' display tile."""
+    return make_tile_spec(stft.shifted_freqs(nfft, 100_000), (-30.0, 30.0),
+                          (-110.0, -40.0))
+
+
+def stream_reads(s, st, view, spec) -> dict:
+    """Every read path of a stream (port or JAX: the same method names)
+    -> host arrays; ``spec`` the package's own TileSpec."""
+    n_disp, stride, n_med = view
+    snap, n_valid = s.snapshot(st)
+    tile, _ = s.snapshot_quantized(st, spec)
+    v, med = s.refresh_view(st, n_disp, stride, n_med=n_med)
+    vt, med_t = s.refresh_view(st, n_disp, stride, spec=spec, n_med=n_med)
+    return {"snapshot": snap, "n_valid": n_valid, "tile": tile,
+            "median": s.median_psd(st),
+            "median_window": s.median_psd(st, n_cols=n_med),
+            "strided": s.snapshot_strided(st, n_disp, stride),
+            "strided_tile": s.snapshot_strided(st, n_disp, stride,
+                                               spec=spec),
+            "refresh_view": v, "refresh_median": med,
+            "refresh_tile": vt, "refresh_tile_median": med_t}
+
+
+def _stream_case(key: str, mkey: str):
+    def case(args):
+        kw, _, _, view = STREAMS[key]
+        tp, cp = STREAM_MESHES[mkey]
+        mesh = mesh_of(tp, cp)
+        multi = StreamingSti(nsub=cp, device="cpu", mesh=mesh, **kw)
+        solo = StreamingSti(nsub=cp, device="cpu", **kw)
+        st_m, st_s = multi.init_state(), solo.init_state()
+        local = (tuple(st_m.carry.shape), tuple(st_m.ring.shape))
+        cols_m, cols_s = [], []
+        for b in stream_blocks_of(key, cp):
+            st_m, c = multi.push(st_m, b)
+            cols_m.append(c.numpy())
+            st_s, c = solo.push(st_s, torch.from_numpy(b))
+            cols_s.append(c.numpy())
+        spec = stream_spec(kw["nfft"])
+        out = {}
+        for label, s, st, cols in (("mesh", multi, st_m, cols_m),
+                                   ("solo", solo, st_s, cols_s)):
+            g = s.global_state(st)
+            out[label] = {"cols": np.stack(cols), "carry": g.carry.numpy(),
+                          "ring": g.ring.numpy(),
+                          "total_cols": st.total_cols,
+                          **stream_reads(s, st, view, spec)}
+        out["local_shapes"] = local
+        out["block_sharding"] = multi.block_sharding()
+        return out
+    return case
+
+
+def case_stream_refusals(args):
+    out = {}
+    for mkey, (tp, cp) in STREAM_MESHES.items():
+        try:
+            StreamingSti(nfft=64, nsub=3, block_len=256, device="cpu",
+                         mesh=mesh_of(tp, cp))
+        except ValueError as e:
+            out[f"nsub_{mkey}"] = str(e)
+    try:
+        StreamingSti(nfft=64, nsub=2, block_len=256, device="meta",
+                     mesh=mesh_of(2, 2))
+    except ValueError as e:
+        out["device"] = str(e)
+    s = StreamingSti(nfft=64, nsub=2, block_len=256, device="cpu",
+                     mesh=mesh_of(2, 2))
+    try:
+        s.push(s.init_state(), np.zeros((2, 256), np.float32))
+    except ValueError as e:
+        out["local_block"] = str(e)
+    return out
+
+
+def case_agree_bounds(args):
+    """agree_bounds and every_rank with each rank's own values."""
+    r = dist.get_rank()
+    out = {}
+    for mkey, (tp, cp) in STREAM_MESHES.items():
+        mesh = mesh_of(tp, cp)
+        out[mkey] = {
+            "ints": pmesh.agree_bounds(mesh, 10 * r, 100 - r),
+            "floats": pmesh.agree_bounds(mesh, 0.5 * r, 9.25 - 0.25 * r),
+            "every_true": pmesh.every_rank(mesh, True),
+            "every_one_false": pmesh.every_rank(mesh, r != 2),
+        }
+    return out
+
+
+SUITES["stream"] = [
+    *[(f"{k}_{m}", _stream_case(k, m)) for k in STREAMS
+      for m in STREAM_MESHES],
+    ("refusals", case_stream_refusals),
+    ("agree_bounds", case_agree_bounds),
+]
+
+
+# ------------------------------------------------------------ suite "live"
+#: the live cases' captures by mesh: "cap2" two subchannels (2x2),
+#: "cap4" four (1x4), both tones at LIVE_SR written by the test process
+LIVE_CAPS = {"2x2": "cap2", "1x4": "cap4"}
+LIVE_SR = 100_000
+#: the live engine (tests/test_live.py:394-413) and its overlap-hop
+#: configuration (tests/test_live.py:747)
+LIVE_CFG = dict(nfft=64, ntime=16, stream_seconds=0.2, streaming=True)
+OVERLAP_CFG = dict(nfft=64, ntime=200, stream_seconds=0.05, hop=32,
+                   streaming=True)
+#: the processor configurations (tests/test_pipeline_runtime.py:284-309)
+PROC_WRITTEN = dict(nfft=128, ntime=6)
+PROC_STREAMING = dict(nfft=128, ntime=6, stream_seconds=0.005)
+#: the differing-bounds case: a capture of BOUNDS_N samples at LIVE_SR on
+#: every rank, BOUNDS_EXTRA more on rank 1, then BOUNDS_GROW appended to
+#: each rank's capture, its tick config and its written config
+BOUNDS_N, BOUNDS_EXTRA, BOUNDS_GROW = 30_000, 9_000, 12_000
+BOUNDS_CFG = dict(nfft=64, ntime=16, stream_seconds=0.1, streaming=True)
+BOUNDS_WRITTEN = dict(nfft=128, ntime=8)
+
+
+def live_checkpoint_path(out_dir, mkey: str, kind: str) -> str:
+    """Where a live case's checkpoint goes: "mesh" (global rank 0 of the
+    port's mesh writes it), "solo" (the port's one-device engine, rank 0)
+    and "jax" (the JAX package's meshed engine, written by the test
+    process before the spawn)."""
+    return os.path.join(str(out_dir), f"live_{mkey}_{kind}.npz")
+
+
+def bounds_capture(n: int) -> np.ndarray:
+    """(n, 2) complex64 two-tone capture of the differing-bounds case."""
+    rng = np.random.default_rng(7)
+    t = np.arange(n) / LIVE_SR
+    x = np.stack([np.exp(2j * np.pi * 12_500.0 * t),
+                  np.exp(2j * np.pi * 25_000.0 * t)], axis=1)
+    x += 1e-3 * (rng.standard_normal(x.shape)
+                 + 1j * rng.standard_normal(x.shape))
+    return x.astype(np.complex64)
+
+
+def _live_case(mkey: str):
+    def case(args):
+        mesh = mesh_of(*STREAM_MESHES[mkey])
+        cap = args[LIVE_CAPS[mkey]]
+        cfg = SpectrogramConfig(**LIVE_CFG)
+        eng = LiveStreamEngine(RFDataset(cap), cfg, "cpu", mesh=mesh,
+                               target_block_samples=4096)
+        solo = LiveStreamEngine(RFDataset(cap), cfg, "cpu",
+                                target_block_samples=4096)
+        out = {"tick": result_of(eng.tick(cfg)),
+               "solo_tick": result_of(solo.tick(cfg)),
+               "local_ring": tuple(eng.state.ring.shape),
+               "local_carry": tuple(eng.state.carry.shape)}
+        ck = eng.save(live_checkpoint_path(args["out"], mkey, "mesh"))
+        if dist.get_rank() == 0:
+            solo.save(live_checkpoint_path(args["out"], mkey, "solo"))
+        out["saved"] = os.path.basename(str(ck))
+        resumed = LiveStreamEngine.resume(RFDataset(cap), cfg, ck, "cpu",
+                                          mesh=mesh)
+        out["resumed_local_ring"] = tuple(resumed.state.ring.shape)
+        out["resumed_next_sample"] = resumed.next_sample
+        out["next_sample"] = eng.next_sample
+        out["resumed_tick"] = result_of(resumed.tick(cfg))
+        out["solo_resumed_tick"] = result_of(LiveStreamEngine.resume(
+            RFDataset(cap), cfg, ck, "cpu").tick(cfg))
+        jck = live_checkpoint_path(args["out"], mkey, "jax")
+        out["from_jax_tick"] = result_of(LiveStreamEngine.resume(
+            RFDataset(cap), cfg, jck, "cpu", mesh=mesh).tick(cfg))
+        return out
+    return case
+
+
+def _overlap_case(mkey: str):
+    def case(args):
+        cap = args[LIVE_CAPS[mkey]]
+        cfg = SpectrogramConfig(**OVERLAP_CFG)
+        eng = LiveStreamEngine(RFDataset(cap), cfg, "cpu",
+                               mesh=mesh_of(*STREAM_MESHES[mkey]),
+                               target_block_samples=4096)
+        solo = LiveStreamEngine(RFDataset(cap), cfg, "cpu",
+                                target_block_samples=4096)
+        return {"carry_len": eng.carry_len,
+                "local_carry": tuple(eng.state.carry.shape),
+                "mesh": result_of(eng.tick(cfg)),
+                "solo": result_of(solo.tick(cfg))}
+    return case
+
+
+def iterated_of(it) -> dict:
+    """An Iterated payload's arrays."""
+    return {k: getattr(it, k) for k in ("sxx_dbfs", "sxx_med_dbfs", "tile",
+                                        "plot_freqs", "times", "freqs",
+                                        "mask")}
+
+
+def _run_processor(datasource, ds, tab, cfg, mesh, ck=None):
+    """The last Iterated payload of a two-iteration processor run (its
+    live engine seeded from the checkpoint ``ck`` where given), its
+    terminate reasons and its iteration count."""
+    events = []
+    terms = []
+    proc = SpectrogramProcessor(
+        datasource, ds, tab, cfg,
+        callbacks=ProcessorCallbacks(on_iterated=events.append,
+                                     on_terminated=terms.append),
+        written_sleep=0.0, streaming_sleep=0.0, max_iterations=2,
+        device="cpu", mesh=mesh)
+    if ck is not None:
+        proc.preload_live_state(ck)
+    proc.run()
+    return proc, {"last": iterated_of(events[-1]), "n": len(events),
+                  "reasons": [int(t.reason) for t in terms]}
+
+
+def _processor_case(mkey: str):
+    def case(args):
+        mesh = mesh_of(*STREAM_MESHES[mkey])
+        cap = args[LIVE_CAPS[mkey]]
+        out = {}
+        for label, datasource, knobs in (
+                ("written", "written", PROC_WRITTEN),
+                ("streaming", "streaming", PROC_STREAMING)):
+            cfg = SpectrogramConfig(**knobs)
+            proc, out[label] = _run_processor(datasource, RFDataset(cap),
+                                              11, cfg, mesh)
+            _, out[f"{label}_solo"] = _run_processor(
+                datasource, RFDataset(cap), 12, cfg, None)
+            out[f"{label}_mesh_is_pipeline_mesh"] = \
+                proc.pipeline.mesh is mesh
+            if label == "written":
+                out["skipped"] = proc.skipped_recomputes
+            else:
+                out["engine_mesh"] = proc._live.engine.sti.mesh is mesh
+        # a streaming processor seeded from the meshed live checkpoint
+        cfg = SpectrogramConfig(**LIVE_CFG)
+        ck = live_checkpoint_path(args["out"], mkey, "mesh")
+        _, out["preloaded"] = _run_processor("streaming", RFDataset(cap), 13,
+                                             cfg, mesh, ck)
+        _, out["preloaded_solo"] = _run_processor(
+            "streaming", RFDataset(cap), 14, cfg, None, ck)
+        return out
+    return case
+
+
+def case_scheduler(args):
+    """A meshed tab beside a one-device tab in one scheduler
+    (tests/test_scheduler.py:268): never merged, equal results."""
+    mesh = mesh_of(2, 2)
+    cap = args["cap2"]
+    cfg = SpectrogramConfig(nfft=256, nint=1, ntime=16)
+    sched = SharedRefreshScheduler(autostart=False)
+    seen = {0: [], 1: []}
+    procs = []
+    for tab, m in ((0, None), (1, mesh)):
+        p = SpectrogramProcessor(
+            "written", RFDataset(cap), tab, cfg,
+            callbacks=ProcessorCallbacks(on_iterated=seen[tab].append),
+            scheduler=sched, device="cpu", mesh=m)
+        p.start()
+        procs.append(p)
+    keys = [sched._group_key(p, cfg) for p in procs]
+    sched.tick_once()
+    sched.tick_once()                      # unchanged: both re-emit
+    out = {"solo_key_is_none": keys[0] is None,
+           "mesh_key_is_none": keys[1] is None,
+           "merged": sched.merged_launches, "solo": sched.solo_launches,
+           "skipped": [p.skipped_recomputes for p in procs],
+           "threads": [p._thread is None for p in procs],
+           "results": [[iterated_of(it) for it in seen[t]] for t in (0, 1)]}
+    for p in procs:
+        p.abort()
+    return out
+
+
+def case_bounds(args):
+    """Ranks that see different capture bounds (rank 1 a longer capture)
+    agree on them: every rank pushes the same blocks and returns the same
+    result as a one-device engine over the shortest capture, then again
+    after each capture grows; a meshed written request and processor
+    compute the span every rank sees."""
+    r = dist.get_rank()
+    mesh = mesh_of(2, 2)
+    full = bounds_capture(BOUNDS_N + BOUNDS_EXTRA + BOUNDS_GROW)
+    n = BOUNDS_N + (BOUNDS_EXTRA if r == 1 else 0)
+    mine = MemoryDataset(full[:n], LIVE_SR)
+    short = MemoryDataset(full[:BOUNDS_N], LIVE_SR)
+    cfg = SpectrogramConfig(**BOUNDS_CFG)
+    eng = LiveStreamEngine(mine, cfg, "cpu", mesh=mesh,
+                           target_block_samples=2048)
+    solo = LiveStreamEngine(short, cfg, "cpu", target_block_samples=2048)
+    out = {"ticks": [], "solo_ticks": [], "counters": [],
+           "solo_counters": []}
+
+    def tick():
+        out["ticks"].append(result_of(eng.tick(cfg)))
+        out["solo_ticks"].append(result_of(solo.tick(cfg)))
+        for key, e in (("counters", eng), ("solo_counters", solo)):
+            out[key].append((e.total_cols, e.next_sample, e.samples_read,
+                             e._tail_pending, e.cols_per_block))
+    tick()
+    # every capture grows by BOUNDS_GROW: rank 1's stays the longer
+    for ds in (mine, short):
+        held = ds.bnds["ch0"][1] + 1
+        ds.append(full[held:held + BOUNDS_GROW])
+        ds.bnds_update()
+    tick()
+    wcfg = SpectrogramConfig(**BOUNDS_WRITTEN)
+    out["written"] = result_of(sti.StiPipeline(mine, wcfg, "cpu",
+                                               mesh=mesh).compute())
+    out["written_solo"] = result_of(sti.StiPipeline(short, wcfg,
+                                                    "cpu").compute())
+    _, out["processor"] = _run_processor("written", mine, 21, wcfg, mesh)
+    _, out["processor_solo"] = _run_processor("written", short, 22, wcfg,
+                                              None)
+    return out
+
+
+SUITES["live"] = [
+    *[(f"live_{m}", _live_case(m)) for m in STREAM_MESHES],
+    *[(f"overlap_{m}", _overlap_case(m)) for m in STREAM_MESHES],
+    *[(f"processor_{m}", _processor_case(m)) for m in STREAM_MESHES],
+    ("scheduler", case_scheduler),
+    ("bounds", case_bounds),
 ]
