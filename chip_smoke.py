@@ -2174,9 +2174,12 @@ def streaming_mesh_paths(mesh, dev, one_device: bool) -> tuple:
         res[f"h_live_{f}"] = getattr(pre, f)
     # save, resume on the mesh, tick with no new samples: the pre-save tick
     tp, cp = (pmesh.axis_size(mesh, a) for a in (TIME_AXIS, CHAN_AXIS))
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     path = eng.save(mesh_dir() / f"live_{tp}x{cp}.npz")
     save_s = time.perf_counter() - t0
+    save_peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 1e6
     t0 = time.perf_counter()
     eng2, _ = mesh_call(lambda: LiveStreamEngine.resume(ds, cfg, path, dev,
                                                         mesh=mesh))
@@ -2209,7 +2212,8 @@ def streaming_mesh_paths(mesh, dev, one_device: bool) -> tuple:
     del eng, solo
     live = {"cold_start_s": cold_s, "ticks_checked": len(ticks),
             "ring_bytes_on_this_rank": ring_bytes,
-            "save_s": save_s, "resume_s": resume_s,
+            "save_s": save_s, "save_device_peak_mb": save_peak_mb,
+            "resume_s": resume_s,
             "resumed_bit_equal": resumed_equal,
             "solo_resume_bit_equal": solo_resume_equal,
             "tick_n": len(walls),

@@ -5,7 +5,7 @@ pyspectrogram_tpu/io/ingest.py.
 packing) on one worker thread up to ``depth`` items ahead; the request
 path's consumer thread issues the host-to-device copies on its own
 current stream. :class:`PrefetchFeeder` is the JAX module's feeder on it,
-its ``device_put`` a copy of each item's arrays to a torch device. The
+its ``device_put`` a copy of each item's arrays to the CUDA device. The
 JAX feeder is not reused because its worker imports jax even with
 ``device_put=False`` (io/ingest.py:46), and this package never imports
 jax. :func:`stream_blocks` is the port of the JAX module's block feeder
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator, Union
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
@@ -44,9 +44,12 @@ def prefetch(produce: Callable[[int], object], n_items: int,
 
 def _put(item, device: torch.device):
     """``item`` with every numpy array in it (the item itself, or a value
-    of a tuple, list or dict in it) copied to ``device``."""
+    of a tuple, list or dict in it) copied to ``device``
+    (models.sti.to_device: pinned and non-blocking to a card)."""
+    from pyspectrogram_tpu_torch.models.sti import to_device
+
     if isinstance(item, np.ndarray):
-        return torch.from_numpy(item).to(device)
+        return to_device(item, device)
     if isinstance(item, (tuple, list)):
         return type(item)(_put(a, device) for a in item)
     if isinstance(item, dict):
@@ -61,20 +64,18 @@ class PrefetchFeeder:
     the consumer after the items before it; :meth:`close` (or leaving a
     ``with`` block) stops the worker.
 
-    ``device_put`` copies every numpy array of an item to a torch device
-    on the worker, so the copy overlaps the consumer's work: True for the
-    current CUDA device, a device (or its name), or False to yield the
-    host arrays.
+    With ``device_put`` (as in JAX, a bool) the worker copies every numpy
+    array of an item to this process's current CUDA device, so the copy
+    overlaps the consumer's work; with False it yields the host arrays.
     """
 
     def __init__(self, produce: Callable[[int], object], n_blocks: int,
-                 depth: int = 2,
-                 device_put: Union[bool, str, torch.device] = True):
+                 depth: int = 2, device_put: bool = True):
         self.produce = produce
         self.n_blocks = n_blocks
         self.device_put = device_put
-        device = (None if device_put is False else
-                  torch.device("cuda" if device_put is True else device_put))
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if device_put else None)
 
         def produce_put(i: int):
             item = produce(i)

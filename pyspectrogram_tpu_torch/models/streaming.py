@@ -182,12 +182,20 @@ class StreamingSti:
             return local
         return pmesh.assemble(local, self.mesh, spec)
 
-    def global_state(self, state: StreamState) -> StreamState:
-        """The whole stream's state on every rank (carry and ring gathered
-        over ``chan``; ``state`` itself without a mesh), as a checkpoint
-        stores it."""
-        return StreamState(carry=self._gather(state.carry, BLOCK_SPEC),
-                           ring=self._gather(state.ring, RING_SPEC),
+    def global_state(self, state: StreamState) -> Optional[StreamState]:
+        """The whole stream's state as a checkpoint stores it: ``state``
+        itself without a mesh; on a mesh the carry and ring gathered over
+        ``chan`` to the host of global rank 0, and None on every other
+        rank (every rank calls this)."""
+        if self.mesh is None:
+            return state
+        carry = pmesh.gather_to_root(state.carry, self.mesh, CHAN_AXIS,
+                                     dim=BLOCK_SPEC.index(CHAN_AXIS))
+        ring = pmesh.gather_to_root(state.ring, self.mesh, CHAN_AXIS,
+                                    dim=RING_SPEC.index(CHAN_AXIS))
+        if carry is None:
+            return None
+        return StreamState(carry=carry, ring=ring,
                            total_cols=state.total_cols)
 
     def place_state(self, state: StreamState) -> StreamState:

@@ -212,16 +212,17 @@ def median_over_time(p: torch.Tensor,
     reference's per-subchannel median PSD (drfProc.py:401). For even n it
     is the mean of the two middles, as np.median (torch.median returns the
     lower middle). ``ntime_valid`` restricts to a leading prefix. Above 32
-    rows float32 takes kernel B2; ``allow_pallas=False`` (the JAX
-    package's switch for its median kernel) takes B2's plain version,
-    ops.plain.median_bisect, on a card too."""
+    rows float32 takes kernel B2 (its plain version on a CPU tensor).
+    ``allow_pallas`` is the JAX signature's switch, there only because
+    GSPMD cannot partition the Pallas call inside a shard_map
+    (pyspectrogram_tpu/ops/stft.py:284); the port has no such limit, and
+    B2 equals np.median bit for bit, as the JAX plain route does, so the
+    switch changes no result and B2 runs either way."""
     n = p.shape[0] if ntime_valid is None else int(ntime_valid)
     p = p[:n]
     if n <= MEDIAN_NETWORK_MAX_N:
         return _median_network(p[i] for i in range(n))
     if p.dtype == torch.float32:
-        if not allow_pallas:
-            return plain.median_bisect(p)
         return median_cuda.median_over_time_cuda(p)
     s = torch.sort(p, dim=0).values
     if n % 2:

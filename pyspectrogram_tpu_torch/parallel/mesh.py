@@ -17,15 +17,16 @@ JAX host holds it before ``device_put``) with no communication, and
 :func:`assemble` gathers the blocks back into the global tensor, what the
 JAX caller gets from ``np.asarray`` of a sharded array.
 
-The collectives (:func:`all_gather`, :func:`all_reduce`,
-:func:`all_to_all`, and on them :func:`agree_bounds`, :func:`every_rank`
-and :func:`barrier`) live here and nowhere else. The process group's
-backend, read once per call with ``dist.get_backend``, picks the route: on
-NCCL they take the tensors on the rank's device; on gloo, a host transport
-(the CPU tests, and several ranks sharing one card), they copy through host
-memory explicitly and bring the result back to the tensor's device. An axis
-of size 1 makes no call. :func:`pad_to_multiple`, :func:`pad_starts` and
-:func:`pad_contiguous_block` are copies of
+The collectives (:func:`all_gather`, :func:`gather_to_root`,
+:func:`all_reduce`, :func:`all_to_all`, and on them :func:`agree_bounds`,
+:func:`every_rank` and :func:`barrier`) live here and nowhere else. The
+process group's backend, read once per call with ``dist.get_backend``,
+picks the route: on NCCL they take the tensors on the rank's device; on
+gloo, a host transport (the CPU tests, and several ranks sharing one
+card), they copy through host memory explicitly and bring the result back
+to the tensor's device (:func:`gather_to_root` leaves it on rank 0's
+host). An axis of size 1 makes no call. :func:`pad_to_multiple`,
+:func:`pad_starts` and :func:`pad_contiguous_block` are copies of
 pyspectrogram_tpu/parallel/mesh.py's: the port imports nothing of that
 package.
 """
@@ -179,6 +180,29 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
     return out.movedim(0, dim)
 
 
+def gather_to_root(x: torch.Tensor, mesh, axis: str, dim: int = 0
+                   ) -> Optional[torch.Tensor]:
+    """What :func:`all_gather` returns for a real ``x``, but on the host
+    of global rank 0 alone (None on every other rank), for a file that
+    rank 0 writes. Only the ranks of rank 0's group along ``axis`` take
+    part: each sends its ``x`` to rank 0, which copies the blocks to its
+    host one at a time, so no device holds more than its own block and
+    one received one."""
+    group, host = _route(mesh, axis)
+    ranks = dist.get_process_group_ranks(group)
+    src = x.contiguous()
+    if dist.get_rank() != 0:
+        if len(ranks) > 1 and 0 in ranks:
+            dist.send(src.cpu() if host else src, dst=0, group=group)
+        return None
+    parts = [src.cpu()]
+    for r in ranks[1:]:
+        buf = torch.empty_like(src, device="cpu" if host else x.device)
+        dist.recv(buf, src=r, group=group)
+        parts.append(buf.cpu())
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
 def all_reduce(x: torch.Tensor, mesh, axis: str, op: str = "sum"
                ) -> torch.Tensor:
     """Elementwise reduction of ``x`` over ``axis``: "sum" (``psum``) or
@@ -196,13 +220,15 @@ def all_reduce(x: torch.Tensor, mesh, axis: str, op: str = "sum"
 
 def _mesh_min(mesh, values, dtype: torch.dtype) -> list:
     """Elementwise minimum of the numbers ``values`` over every rank of
-    ``mesh``: one :func:`all_reduce` per axis (an axis of one rank makes
-    no call)."""
+    ``mesh`` (the whole default group, as :func:`barrier` takes it): one
+    all-reduce, on the rank's device under NCCL and in host memory under
+    any other backend. A 1x1 mesh makes no call."""
     if mesh.size() == 1:
         return list(values)
-    t = torch.tensor(values, dtype=dtype, device=mesh_device(mesh))
-    for axis in mesh.mesh_dim_names:
-        t = all_reduce(t, mesh, axis, "min")
+    host = dist.get_backend() != dist.Backend.NCCL
+    t = torch.tensor(values, dtype=dtype,
+                     device="cpu" if host else mesh_device(mesh))
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
     return t.tolist()
 
 

@@ -24,7 +24,8 @@ blocks to push, a backlog restart, the tail's length) is taken on the
 bounds all ranks agree on (parallel.mesh.agree_bounds). A push copies
 only the rank's rows; a tick gathers the view (ring rows and tail rows
 together) and the median over ``chan``; a save gathers the ring and carry
-and global rank 0 writes the one-device file.
+to global rank 0 alone (parallel.mesh.gather_to_root), which writes the
+one-device file.
 """
 
 from __future__ import annotations
@@ -222,9 +223,9 @@ class LiveStreamEngine:
         format; either package resumes it, on one device or a mesh.
 
         On a mesh every rank calls this: the ring and carry are gathered
-        over ``chan``, global rank 0 writes the file the one-device engine
-        writes, and the ranks meet at a barrier before returning its
-        path."""
+        over ``chan`` to global rank 0's host alone, rank 0 writes the
+        file the one-device engine writes, and the ranks meet at a barrier
+        before returning its path."""
         state = self.sti.global_state(self.state)
         meta = {
             "kind": "live_stream",
@@ -239,7 +240,7 @@ class LiveStreamEngine:
         extra = {"col_mask": self.col_mask, "carry_mask": self._carry_mask}
         if self.mesh is None:
             return checkpoint.save_stream_state(path, state, meta, extra)
-        if torch.distributed.get_rank() == 0:
+        if state is not None:
             path = checkpoint.save_stream_state(path, state, meta, extra)
         else:
             path = checkpoint._npz_path(path)

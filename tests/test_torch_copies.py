@@ -517,7 +517,7 @@ def test_prefetch_feeder_is_the_jax_feeder():
     """io.ingest.PrefetchFeeder: the JAX feeder's signature, items in
     order, a producer's error raised at the consumer after the items
     before it, close() and the context manager; ``device_put`` copies to
-    a torch device; stream_blocks returns one, as the JAX module's does."""
+    the CUDA device; stream_blocks returns one, as the JAX module's does."""
     import torch
 
     from pyspectrogram_tpu.io import ingest as jio
@@ -555,12 +555,13 @@ def test_prefetch_feeder_is_the_jax_feeder():
         time.sleep(0.5)
         # closed: the worker made at most the item ahead and stopped
         assert first == 0 and n_closed <= 3 and len(made) == n_closed
+    # the worker's copy under device_put=True (to the current CUDA device;
+    # here to the CPU): every array of the item, nested ones too
     a = np.arange(6, dtype=np.float32).reshape(2, 3)
-    items = list(io.PrefetchFeeder(lambda i: (a + i, {"k": a}), 2,
-                                   device_put="cpu"))
-    assert isinstance(items[1][0], torch.Tensor)
-    np.testing.assert_array_equal(items[1][0].numpy(), a + 1)
-    assert isinstance(items[0][1]["k"], torch.Tensor)
+    item = io._put((a + 1, {"k": a}, "tag"), torch.device("cpu"))
+    assert isinstance(item[0], torch.Tensor)
+    np.testing.assert_array_equal(item[0].numpy(), a + 1)
+    assert isinstance(item[1]["k"], torch.Tensor) and item[2] == "tag"
 
 
 def test_quantize_tile_db_is_the_jax_epilogue():
@@ -613,9 +614,12 @@ def test_make_xla_psd_is_the_plain_psd(mode, nint):
 
 
 def test_median_over_time_takes_allow_pallas(monkeypatch):
-    """ops.stft.median_over_time(allow_pallas=False), the JAX keyword:
-    the plain route (ops.plain.median_bisect) and never kernel B2, equal
-    to np.median bit for bit, as the kernel route is."""
+    """ops.stft.median_over_time takes the JAX keyword allow_pallas, and
+    either value goes through kernel B2's wrapper (the port has no plain
+    route on a card: B2 equals np.median bit for bit, as JAX's plain
+    route does); on these CPU tensors the wrapper takes its plain
+    version."""
+    import jax.numpy as jnp
     import torch
 
     from pyspectrogram_tpu.ops import stft as jstft
@@ -629,13 +633,18 @@ def test_median_over_time_takes_allow_pallas(monkeypatch):
     p = np.random.default_rng(8).exponential(size=(40, 2, 64)).astype(
         np.float32)
     want = np.median(p, axis=0)
-    kernel = stft.median_over_time(torch.from_numpy(p)).numpy()
+    calls = []
+    b2 = median_cuda.median_over_time_cuda
 
-    def no_kernel(*a, **k):
-        raise AssertionError("kernel B2 called with allow_pallas=False")
+    def counted(*a, **k):
+        calls.append(1)
+        return b2(*a, **k)
 
-    monkeypatch.setattr(median_cuda, "median_over_time_cuda", no_kernel)
-    plain_route = stft.median_over_time(torch.from_numpy(p),
-                                        allow_pallas=False).numpy()
-    for got in (kernel, plain_route):
+    monkeypatch.setattr(median_cuda, "median_over_time_cuda", counted)
+    for allow in (True, False):
+        got = stft.median_over_time(torch.from_numpy(p),
+                                    allow_pallas=allow).numpy()
         np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, np.asarray(
+            jstft.median_over_time(jnp.asarray(p), allow_pallas=allow)))
+    assert len(calls) == 2

@@ -71,7 +71,13 @@ def _check_against_jax(got, want):
 
 
 def _check_case(ranks, key, mkey):
-    got = R.case_result(ranks, f"{key}_{mkey}")
+    name = f"{key}_{mkey}"
+    got = R.case_result(ranks, name, per_rank=("state",))
+    # the whole state (a checkpoint's) reaches global rank 0 alone
+    assert all(res[name]["state"]["mesh"] is None for res in ranks[1:])
+    got = {**got, **{label: dict(got[label], carry=got["state"][label][0],
+                                 ring=got["state"][label][1])
+                     for label in ("mesh", "solo")}}
     # the meshed stream is the one-device stream, bit for bit
     R._same(got["mesh"], got["solo"], f"{key}_{mkey} mesh vs solo")
     _check_against_jax(got["mesh"], jax_stream(key, mkey))
@@ -119,7 +125,7 @@ def test_refresh_view_matches_jax(ranks, mkey):
 
 
 def test_block_sharding_is_jax_spec(ranks):
-    got = R.case_result(ranks, "push_2x2")
+    got = R.case_result(ranks, "push_2x2", per_rank=("state",))
     s = JStreamingSti(nfft=128, nsub=2, block_len=512, ring_len=8,
                       mesh=jmesh("2x2"))
     assert got["block_sharding"] == tuple(s.block_sharding().spec)

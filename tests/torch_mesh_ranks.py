@@ -733,12 +733,14 @@ def _stream_case(key: str, mkey: str):
             st_s, c = solo.push(st_s, torch.from_numpy(b))
             cols_s.append(c.numpy())
         spec = stream_spec(kw["nfft"])
-        out = {}
+        out = {"state": {}}
         for label, s, st, cols in (("mesh", multi, st_m, cols_m),
                                    ("solo", solo, st_s, cols_s)):
+            # the checkpoint's state: on global rank 0 alone on a mesh
             g = s.global_state(st)
-            out[label] = {"cols": np.stack(cols), "carry": g.carry.numpy(),
-                          "ring": g.ring.numpy(),
+            out["state"][label] = None if g is None else (
+                g.carry.numpy(), g.ring.numpy())
+            out[label] = {"cols": np.stack(cols),
                           "total_cols": st.total_cols,
                           **stream_reads(s, st, view, spec)}
         out["local_shapes"] = local
