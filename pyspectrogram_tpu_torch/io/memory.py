@@ -2,8 +2,9 @@
 
 :class:`MemoryDataset` serves one channel of samples from a numpy array:
 its bounds, rate, full-scale reference and channel maps, and
-``reader.read_vector_raw`` with the Digital RF reader's semantics (storage
-dtype, zero fill and a False mask outside the written span). A request then
+``reader.read_vector_raw`` / ``read_vector`` with the Digital RF reader's
+semantics (storage dtype or complex128, zero fill and a False mask outside
+the written span). A request then
 runs end to end, host assembly and prefetch branch included, without
 Digital RF files or h5py; ``append`` grows the capture for the live
 engine, from a writer thread while processors read it from theirs.
@@ -16,7 +17,7 @@ from fractions import Fraction
 
 import numpy as np
 
-from pyspectrogram_tpu_torch.io.reader import RFDataset
+from pyspectrogram_tpu_torch.io.reader import RFDataset, to_complex
 
 
 class MemoryReader:
@@ -77,6 +78,14 @@ class MemoryReader:
             out[lo - st:hi - st] = held[lo - self.start:hi - self.start]
             mask[lo - st:hi - st] = True
         return (out, mask) if return_mask else out
+
+    def read_vector(self, start_sample: int, n_samples: int, channel: str,
+                    sub_channel=None) -> np.ndarray:
+        """Dense read in float64/complex128 (RFDataset.read's), (n, nsub),
+        or (n,) of ``sub_channel``."""
+        out = to_complex(self.read_vector_raw(start_sample, n_samples,
+                                              channel))
+        return out if sub_channel is None else out[:, int(sub_channel)]
 
 
 class MemoryDataset(RFDataset):

@@ -1,6 +1,7 @@
-"""Every module of the port, chip_smoke.py and kernel_times.py import
-without loading jax or anything of the JAX package (pyspectrogram_tpu): the
-port keeps its own copies of what it uses.
+"""Every module of the port, chip_smoke.py, kernel_times.py and
+examples/demo_torch.py import without loading jax or anything of the JAX
+package (pyspectrogram_tpu): the port keeps its own copies of what it
+uses.
 
 One case per module (pkgutil.walk_packages over the port). A module-scoped
 fixture imports them all in turn in ONE fresh interpreter (JAX_PLATFORMS=cpu,
@@ -28,8 +29,9 @@ REPO = Path(__file__).resolve().parents[1]
 MODULES = ["pyspectrogram_tpu_torch"] + sorted(
     m.name for m in pkgutil.walk_packages(pyspectrogram_tpu_torch.__path__,
                                           "pyspectrogram_tpu_torch."))
-#: chip_smoke.py and kernel_times.py are imported, not run: they need a card
-CASES = MODULES + ["chip_smoke", "kernel_times"]
+#: chip_smoke.py, kernel_times.py and the port's demo are imported, not
+#: run: the first two need a card
+CASES = MODULES + ["chip_smoke", "kernel_times", "examples.demo_torch"]
 #: marks the probe's own output lines among whatever an import prints
 TAG = "ISOLATION-PROBE "
 

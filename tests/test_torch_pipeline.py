@@ -164,6 +164,24 @@ def test_memory_dataset_matches_capture(request, monkeypatch, capture,
             np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
 
 
+@pytest.mark.parametrize("capture", ["tone_capture", "int16_capture"])
+def test_memory_dataset_read_matches_capture(request, capture):
+    """RFDataset.read on the samples served from memory: dBFS-scaled
+    complex128, whole or one subchannel, zeros past the written span."""
+    top, _ = request.getfixturevalue(capture)
+    ds = RFDataset(top)
+    chan = ds.channels[0]
+    lo, hi = ds.bnds[chan]
+    mem = MemoryDataset(ds.reader.read_vector_raw(lo, hi - lo + 1, chan),
+                        ds.sr_dict[chan], channel=chan, start=lo,
+                        ref=ds.ref_dict[chan])
+    for entry in (chan, *ds.chan_entries):
+        for st, n in ((lo, 4096), (hi - 100, 300), (lo - 7, 50)):
+            got, want = mem.read(st, n, entry), ds.read(st, n, entry)
+            assert got.dtype == want.dtype == np.complex128
+            np.testing.assert_array_equal(got, want)
+
+
 def test_cuda_device_raises_without_gpu(tone_capture):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
