@@ -25,10 +25,26 @@ drives the port's paths on the card, checking what comes out:
   dtypes and dBFS references) and the head-of-line wait behind them; a
   threaded written SpectrogramProcessor; and N = 1, 3, 7 streaming
   processors on their own threads over one capture a writer thread grows;
-- the port's entry points: the pstpu-torch commands (sti at the headline
-  shape with its .npz and session, resume, psd, sti-batch over three
-  captures, stream with and without --hop 2048, watch at the 30 s window,
-  sti at nfft 65536) through ``build_parser()``, and the viewer's
+- the main path from Digital RF files on disk (the "files" phase), read
+  and written by the port's own HDF5 layer (io.hdf5): DigitalRFWriter
+  writes 30 s of the two tones at 1 MS/s on two subchannels (480 MB);
+  StiPipeline.compute over RFDataset(dir) at the headline, bit for bit
+  against the same request over a MemoryDataset of the same samples, the
+  reference default and nfft 65536 (B4); the headline request and its
+  host read timed warm and after a page cache drop (the pages it left
+  resident and the capture's file system recorded, so a "cold" row says
+  whether it read the disk), pooled and with io_workers=0; the
+  headline's frame reads taken apart into the system calls io.fastread
+  makes, the same reads replayed alone, and a file's first probe; a gzip
+  capture through the chunk-decoding path; and a
+  LiveStreamEngine at the 30 s window ticking while a writer thread
+  grows the capture, its final view bit-equal to an engine over memory;
+- the port's entry points: the pstpu-torch commands on Digital RF
+  directories (synth writing three captures, info, sti at the headline
+  shape with its .npz and session, resume, psd, sti-batch over the three,
+  stream with and without --hop 2048, filter with its new channel read
+  back, and on the files phase's capture watch at the 30 s window and sti
+  at nfft 65536) through ``build_parser()``, and the viewer's
   MainWindow on the headless widget kit (a written tab at the reference
   default, a live tab at the 30 s window), its plots recorded;
 - filter_signal over a 30 s, 1 MS/s two-tone capture (58,592 frames of
@@ -36,9 +52,8 @@ drives the port's paths on the card, checking what comes out:
 - the user recipes as a user writes them (the "recipes" phase): every
   block of docs/cookbook_torch.md in one namespace, section by section,
   its §5 rank script on four gloo ranks sharing the card (a 2x2 mesh), and
-  examples/demo_torch.py's steps 2-5, each against the same recipe on the
-  CPU in this process; each write_capture / RFDataset pair is served from
-  memory (the machine has no h5py), and the replaced calls are counted;
+  examples/demo_torch.py's steps 1-5, each against the same recipe on the
+  CPU in this process, their captures written and read as files;
 - the mesh tier on torch.distributed: a 1x1 mesh over NCCL in this
   process, then four ranks spawned on the one card over gloo (a 2x2 mesh,
   the distributed FFT on 4x1), each running StiPipeline(mesh=) at the
@@ -75,17 +90,19 @@ one (``torch.median``, ``torch.quantile``). Every phase prints one JSON line; th
 code is then non-zero. Needs one CUDA device; imports torch, numpy and the
 port only.
 
-The captures are seeded two-tone complex64 arrays served by the port's
-in-memory dataset, so the host reads, assembly and copies run as they do
-for a Digital RF capture, without HDF5 files (the reader needs h5py).
+Outside the files phase, the CLI and the recipes, the captures are
+seeded two-tone complex64 arrays served by the port's in-memory dataset
+(io.memory.MemoryDataset), whose host reads, assembly and copies run as
+they do for a Digital RF capture; the files phase holds the two to the
+same bits.
 """
 
 from __future__ import annotations
 
 import contextlib
-import inspect
 import io
 import json
+import platform
 import sys
 import tempfile
 import time
@@ -932,6 +949,531 @@ def phase_live(dev, card, x, sr):
                               "tick_p90_ms": tick_p90}
 
 
+# ------------------------------------------------------------ files
+#: the files phase's capture: 30 s of the two tones at 1 MS/s on two
+#: subchannels, complex64 (480 MB of samples in 30 one-second files); the
+#: gzip capture holds its first 2 s; the growing capture gains 0.1 s
+#: blocks
+FILES_SECONDS, GZIP_SECONDS, GROW_BLOCKS = 30, 2, 20
+#: headline requests and host assemblies timed in each cache state, and
+#: the live engine's ticks while the capture grows
+FILES_REQUESTS, FILES_ASSEMBLIES, FILES_TICKS = 20, 10, 20
+#: the live tick's limit (PERF.md §2)
+TICK_LIMIT_MS = 80.0
+
+
+def capture_files(top) -> list:
+    return sorted(Path(top).rglob("*.h5"))
+
+
+def sync_files(top) -> None:
+    """Flush a capture's files to the disk."""
+    import os
+
+    for p in capture_files(top):
+        fd = os.open(p, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+
+
+def drop_cache(top) -> float:
+    """Ask the kernel to evict a capture's (synced) files from the page
+    cache (POSIX_FADV_DONTNEED); returns the share of their pages still
+    resident after it, so 0.0 means the next read comes from the disk."""
+    import os
+
+    files = capture_files(top)
+    for p in files:
+        fd = os.open(p, os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+    return resident_share(files)
+
+
+def resident_share(paths) -> float:
+    """The share of the files' pages that the page cache holds: mincore
+    over a shared read-only mapping of each file."""
+    import ctypes
+    import mmap
+    import os
+
+    import numpy as np
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = (ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_long)
+    libc.munmap.argtypes = (ctypes.c_void_p, ctypes.c_size_t)
+    libc.mincore.argtypes = (ctypes.c_void_p, ctypes.c_size_t,
+                             ctypes.c_void_p)
+    failed = ctypes.c_void_p(-1).value
+    held = total = 0
+    for p in paths:
+        size = os.path.getsize(p)
+        if not size:
+            continue
+        fd = os.open(p, os.O_RDONLY)
+        try:
+            addr = libc.mmap(None, size, mmap.PROT_READ, mmap.MAP_SHARED, fd,
+                             0)
+            if addr in (None, failed):
+                raise OSError(ctypes.get_errno(), f"mmap of {p}")
+            try:
+                pages = -(-size // mmap.PAGESIZE)
+                vec = (ctypes.c_ubyte * pages)()
+                if libc.mincore(ctypes.c_void_p(addr), size, vec):
+                    raise OSError(ctypes.get_errno(), f"mincore of {p}")
+                held += int((np.frombuffer(vec, np.uint8) & 1).sum())
+                total += pages
+            finally:
+                libc.munmap(ctypes.c_void_p(addr), size)
+        finally:
+            os.close(fd)
+    return held / max(total, 1)
+
+
+#: file systems whose pages are their storage: a read there never reaches
+#: a disk, whatever the page cache holds
+MEMORY_FS = ("tmpfs", "ramfs")
+
+
+def mount_of(path) -> dict:
+    """The mount that holds ``path`` (the longest mount point above it in
+    /proc/self/mounts): its point, file system type and source."""
+    import os
+
+    real = os.path.realpath(path)
+    best = ("", "unknown", "unknown")
+    with open("/proc/self/mounts") as f:
+        for line in f:
+            src, point, fstype = line.split()[:3]
+            point = point.replace("\\040", " ")
+            inside = real == point or real.startswith(point.rstrip("/") + "/")
+            if inside and len(point) >= len(best[0]):
+                best = (point, fstype, src)
+    return {"mount": best[0], "fs": best[1], "source": best[2]}
+
+
+#: the system calls io.fastread makes for a read, timed by read_parts
+READ_CALLS = ("stat", "open", "preadv", "close")
+
+
+@contextlib.contextmanager
+def timed_os_calls(spent: dict, preads: list):
+    """Wrap os.stat / open / preadv / close for the block: each adds its
+    wall seconds and one call to ``spent[name]`` ([seconds, calls]); each
+    preadv also appends (path, byte offset, bytes read) to ``preads``."""
+    import os
+
+    real = {k: getattr(os, k) for k in READ_CALLS}
+    paths = {}
+
+    def wrap(name):
+        fn = real[name]
+
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                spent[name][0] += time.perf_counter() - t0
+                spent[name][1] += 1
+            if name == "open":
+                paths[out] = args[0]
+            elif name == "preadv":
+                preads.append((paths.get(args[0]), args[2], out))
+            return out
+        return call
+
+    for k in READ_CALLS:
+        setattr(os, k, wrap(k))
+    try:
+        yield
+    finally:
+        for k, fn in real.items():
+            setattr(os, k, fn)
+
+
+def read_parts(ds, mem, chan, n_st, frame_len, passes: int = 5) -> dict:
+    """Where a read of frames from files goes. The frames are read one by
+    one through ``ds.reader.read_vector_raw``, as assemble_device_block
+    reads frames that lie apart, and the same from ``mem``;
+    io.drf_format.files_overlapping, which finds each frame's files, is
+    timed alone; one more pass times the system calls io.fastread makes
+    inside the reads; the recorded preadvs are replayed alone (open,
+    preadv, close) into fresh memory and into one reused buffer; and each
+    file the frames touch is probed by a FastSpanReader that has not
+    mapped it. Times are ms over all the frames, p50 over ``passes``."""
+    import os
+
+    import numpy as np
+
+    from pyspectrogram_tpu_torch.io import drf_format as fmt
+    from pyspectrogram_tpu_torch.io.fastread import FastSpanReader
+
+    starts = [int(s) for s in n_st]
+
+    def p50(fn):
+        out = []
+        for _ in range(passes):
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
+        return float(np.percentile(out, 50) * 1e3)
+
+    def frames(src):
+        return lambda: [src.reader.read_vector_raw(s, frame_len, chan,
+                                                   return_mask=True)
+                        for s in starts]
+
+    files_ms = p50(frames(ds))
+    memory_ms = p50(frames(mem))
+    props = ds.reader._channel_props(chan)
+    cdir = ds.reader.top_dir / chan
+    overlap_ms = p50(lambda: [fmt.files_overlapping(props, cdir, s,
+                                                    s + frame_len)
+                              for s in starts])
+    spent = {k: [0.0, 0] for k in READ_CALLS}
+    preads = []
+    with timed_os_calls(spent, preads):
+        t0 = time.perf_counter()
+        frames(ds)()
+        instrumented_ms = (time.perf_counter() - t0) * 1e3
+    check(preads and all(p is not None for p, _, _ in preads),
+          "files read parts: the reads made no preadv of a known file")
+    nbytes = sum(b for _, _, b in preads)
+    reused = np.empty(max(b for _, _, b in preads), np.uint8)
+    reused[:] = 0
+
+    def replay(fresh):
+        for path, off, want in preads:
+            buf = np.empty(want, np.uint8) if fresh else reused[:want]
+            view = memoryview(buf)
+            fd = os.open(path, os.O_RDONLY)
+            try:
+                done = 0
+                while done < want:
+                    got = os.preadv(fd, [view[done:]], off + done)
+                    check(got > 0, f"files read parts: short read of {path}")
+                    done += got
+            finally:
+                os.close(fd)
+
+    fresh_ms = p50(lambda: replay(True))
+    reused_ms = p50(lambda: replay(False))
+    touched = sorted({p for p, _, _ in preads})
+    t0 = time.perf_counter()
+    for path in touched:
+        check(FastSpanReader(workers=1)._probe(Path(path)) is not None,
+              f"files read parts: {path} does not map")
+    probe_ms = (time.perf_counter() - t0) * 1e3 / len(touched)
+    return {"frames": len(starts), "frame_bytes": nbytes // len(starts),
+            "passes": passes, "files_read_vector_raw_ms": files_ms,
+            "memory_read_vector_raw_ms": memory_ms,
+            "files_overlapping_ms": overlap_ms,
+            "instrumented_pass_ms": instrumented_ms,
+            "syscalls": {k: {"calls": c, "ms": s * 1e3}
+                         for k, (s, c) in spent.items()},
+            "preadv_bytes": nbytes,
+            "replay_fresh_memory_ms": fresh_ms,
+            "replay_reused_buffer_ms": reused_ms,
+            "replay_reused_gb_per_s": nbytes / (reused_ms * 1e-3) / 1e9,
+            "probe_unmapped_file_ms": probe_ms,
+            "probed_files": len(touched)}
+
+
+def same_result(a, b, what: str) -> None:
+    """Two StiResults bit for bit."""
+    import numpy as np
+
+    for f in ("sxx_dbfs", "sxx_med_dbfs", "tile", "frame_starts", "times",
+              "freqs", "mask"):
+        x, y = getattr(a, f), getattr(b, f)
+        check((x is None and y is None) or np.array_equal(x, y),
+              f"{what}: {f} differs")
+
+
+def phase_files(dev, card, tmp, mem_ticks: dict):
+    """The main path from Digital RF files on disk, read and written by the
+    port's own HDF5 layer (io.hdf5): DigitalRFWriter writes the 30 s
+    capture from samples made beforehand (write_capture runs in phase_cli's
+    synth); StiPipeline.compute over RFDataset(dir) at the headline (bit
+    for bit against the same request over a MemoryDataset of the same
+    samples, and against the CPU in dB), the reference default and nfft
+    65536 (B4); compute() and the host read + assembly timed warm and
+    after a page cache drop before each call (its pages still resident
+    measured, with the capture's file system), with the pooled reader and
+    with io_workers=0; the headline's frame reads taken apart
+    (read_parts); a gzip capture through the chunk-decoding path; a
+    writer thread growing the capture while a LiveStreamEngine at the
+    30 s window ticks on it, its final view bit-equal to an engine over a
+    MemoryDataset fed the same blocks. Returns (the launches made from the
+    files, the capture's directory)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch import SpectrogramConfig
+    from pyspectrogram_tpu_torch.io import DigitalRFWriter, RFDataset
+    from pyspectrogram_tpu_torch.io.memory import MemoryDataset
+    from pyspectrogram_tpu_torch.io.synthetic import tone_signal
+    from pyspectrogram_tpu_torch.models import sti
+    from pyspectrogram_tpu_torch.runtime import LiveStreamEngine
+
+    sr = 1_000_000
+    tones = [sr / 16.0, sr / 8.0]
+    n = FILES_SECONDS * sr
+    top = Path(tmp) / "capture"
+    from_files = {k: 0 for k in read_counts()}
+
+    def on_files(fn):
+        """Run ``fn`` with its launches counted as made from the files."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        add_counts(from_files, read_counts())
+        return out
+
+    # 1. make the samples, then write them as write_capture does (its
+    # channel, start and cadences), the write alone timed
+    t0 = time.perf_counter()
+    x = two_tone(n, sr, tones, noise_rms=1e-3, seed=1)
+    synth_s = time.perf_counter() - t0
+    start = int(1451661840 * sr)
+    w = DigitalRFWriter(top, "ch0", np.complex64, start_global_index=start,
+                        sample_rate_numerator=sr, num_subchannels=2)
+    t0 = time.perf_counter()
+    w.rf_write(x)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sync_files(top)
+    sync_s = time.perf_counter() - t0
+    files = capture_files(top)
+    disk_bytes = sum(p.stat().st_size for p in files)
+    where = mount_of(top)
+    mem = MemoryDataset(x, sr, start=start)
+    ds = RFDataset(top)
+    chan = ds.channels[0]
+    check(ds.bnds[chan] == mem.bnds[chan] == (start, start + n - 1)
+          and ds.ref_dict[chan] == 1.0 and len(files) == FILES_SECONDS + 1,
+          f"files: capture of bounds {ds.bnds}, {len(files)} files")
+    emit({"phase": "files_write", "card": card, "seconds": FILES_SECONDS,
+          "sample_rate": sr, "nsub": 2, "sample_bytes": x.nbytes,
+          "disk_bytes": disk_bytes, "files": len(files),
+          "synthesis_s": synth_s, "write_s": write_s, "fsync_s": sync_s,
+          "write_mb_per_s": x.nbytes / write_s / 1e6,
+          "capture_mount": where, "kernel": platform.release()})
+
+    # 2. requests from disk, bit for bit against memory
+    headline = SpectrogramConfig(nfft=4096, nint=4, ntime=128, mode="welch",
+                                 precision="exact")
+    # at ntime <= 32 the median is the sorting network, not B2
+    requests = [("headline", headline, ("sti_psd", "median")),
+                ("reference_default", SpectrogramConfig(),
+                 ("sti_psd", "median")),
+                ("nfft65536", SpectrogramConfig(nfft=1 << 16, nint=4,
+                                                ntime=32), ("big_psd",))]
+    for label, cfg, kernels in requests:
+        pipe = sti.StiPipeline(ds, cfg, device=dev)
+        before = dict(from_files)
+        res = on_files(pipe.compute)
+        run = {k: from_files[k] - before[k] for k in from_files}
+        check(all(run[k] > 0 for k in kernels),
+              f"files {label}: launches {run}, expected {kernels}")
+        same_result(res, sti.StiPipeline(mem, cfg, device=dev).compute(),
+                    f"files {label} against memory")
+        med = res.sxx_med_dbfs
+        peaks = []
+        for s, f in enumerate(tones):
+            k = int(med[:, s].argmax())
+            peaks.append(float(med[k, s]))
+            check(abs(res.freqs[k] - f) <= sr / cfg.nfft
+                  and abs(med[k, s]) <= 0.1,
+                  f"files {label}: sub {s} peak {med[k, s]} dBFS at "
+                  f"{res.freqs[k]} Hz")
+        line = {"phase": f"files_request_{label}", "card": card,
+                "nfft": cfg.nfft, "nint": cfg.nint, "ntime": cfg.ntime,
+                "prefetch": 4 * cfg.ntime * cfg.nfft * cfg.nint * 4
+                >= sti.PREFETCH_MIN_BYTES,
+                "bit_equal_memory": True, "peaks_dbfs": peaks,
+                "launches": run}
+        if label == "headline":
+            cpu = sti.StiPipeline(ds, cfg, device="cpu").compute()
+            check(np.array_equal(res.frame_starts, cpu.frame_starts),
+                  "files headline: frame starts differ from the CPU run")
+            d = max(db_diff(med, cpu.sxx_med_dbfs, axis=0),
+                    db_diff(res.sxx_dbfs, cpu.sxx_dbfs, axis=0))
+            check(d <= 1e-3, f"files headline: dB differs from the CPU run "
+                             f"by {d}")
+            line["max_db_diff_vs_cpu"] = d
+            n_st = res.frame_starts
+        emit(line)
+
+    # 3. the headline request and its host half, warm and after a page
+    # cache drop, pooled reader and io_workers=0, beside the same over
+    # memory; a "cold" row is a disk read only where the drop evicted the
+    # pages from a file system that is not memory
+    frame_len = headline.nfft * headline.nint
+    resident = []
+
+    def walls(fn, calls, cold):
+        out = []
+        for _ in range(calls):
+            if cold:
+                resident.append(drop_cache(top))
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
+        return [float(v) for v in np.percentile(out, [50, 90]) * 1e3]
+
+    timing = {}
+    for label, src in (("memory", mem), ("files", ds),
+                       ("files_io_workers0", RFDataset(top, io_workers=0))):
+        pipe = sti.StiPipeline(src, headline, device=dev)
+        pipe.compute()
+        for temp in (("warm",) if label == "memory" else ("warm", "cold")):
+            cold = temp == "cold"
+            resident.clear()
+            req = walls(pipe.compute, FILES_REQUESTS, cold)
+            asm = walls(lambda: sti.assemble_device_block(
+                src, chan, None, n_st, frame_len), FILES_ASSEMBLIES, cold)
+            row = {"request_p50_ms": req[0], "request_p90_ms": req[1],
+                   "host_read_assemble_p50_ms": asm[0],
+                   "host_read_assemble_p90_ms": asm[1]}
+            if cold:
+                share = max(resident)
+                row["resident_after_drop_max"] = share
+                row["disk_read"] = (share < 0.01
+                                    and where["fs"] not in MEMORY_FS)
+                if not row["disk_read"]:
+                    row["note"] = "cache drop ineffective, not a disk read"
+            timing[f"{label}_{temp}"] = row
+    emit({"phase": "files_timing_headline", "card": card,
+          "requests": FILES_REQUESTS, "assemblies": FILES_ASSEMBLIES,
+          "block_bytes": 4 * 128 * frame_len * 4,
+          "capture_fs": where["fs"], **timing})
+    emit({"phase": "files_read_parts", "card": card,
+          **read_parts(ds, mem, chan, n_st, frame_len)})
+
+    # 4. gzip: the chunk-decoding path, bit for bit against the plain files
+    gz = Path(tmp) / "gzip"
+    ng = GZIP_SECONDS * sr
+    w = DigitalRFWriter(gz, chan, np.complex64, start_global_index=start,
+                        sample_rate_numerator=sr, num_subchannels=2,
+                        compression_level=1)
+    t0 = time.perf_counter()
+    for s in range(0, ng, sr // 10):
+        w.rf_write(x[s:s + sr // 10])
+    gz_write_s = time.perf_counter() - t0
+    ds_gz = RFDataset(gz)
+    t0 = time.perf_counter()
+    got = ds_gz.reader.read_vector_raw(start, ng, chan)
+    gz_read_s = time.perf_counter() - t0
+    check(np.array_equal(got, ds.reader.read_vector_raw(start, ng, chan))
+          and np.array_equal(got, x[:ng]),
+          "files gzip: reads differ from the uncompressed capture's")
+    cfg = SpectrogramConfig()
+    res = on_files(sti.StiPipeline(ds_gz, cfg, device=dev).compute)
+    same_result(res, sti.StiPipeline(MemoryDataset(x[:ng], sr, start=start),
+                                     cfg, device=dev).compute(),
+                "files gzip request against memory")
+    gz_bytes = sum(p.stat().st_size for p in capture_files(gz))
+    emit({"phase": "files_gzip", "card": card, "seconds": GZIP_SECONDS,
+          "compression_level": 1, "sample_bytes": x[:ng].nbytes,
+          "disk_bytes": gz_bytes, "write_s": gz_write_s,
+          "write_mb_per_s": x[:ng].nbytes / gz_write_s / 1e6,
+          "read_s": gz_read_s,
+          "read_mb_per_s": x[:ng].nbytes / gz_read_s / 1e6,
+          "bit_equal_uncompressed": True, "request_bit_equal_memory": True})
+    del got, ds_gz
+
+    # 5. a writer thread grows the capture while the live engine ticks
+    cfg = SpectrogramConfig(nfft=4096, hop=2048, ntime=100,
+                            stream_seconds=30.0, display_tile=True,
+                            color_range_db=COLOR_RANGE_DB, streaming=True)
+    blk = sr // 10
+    ext = tone_signal(GROW_BLOCKS * blk, sr, tones, start_sample=n,
+                      noise_rms=1e-3, seed=3).astype(np.complex64)
+    ds_live = RFDataset(top)
+    t0 = time.perf_counter()
+    eng = LiveStreamEngine(ds_live, cfg, dev)
+    on_files(lambda: eng.tick(cfg))
+    cold_s = time.perf_counter() - t0
+    mem_live = MemoryDataset(x, sr, start=start)
+    eng_mem = LiveStreamEngine(mem_live, cfg, dev)
+    eng_mem.tick(cfg)
+    w = DigitalRFWriter(top, chan, np.complex64,
+                        start_global_index=start + n,
+                        sample_rate_numerator=sr, num_subchannels=2)
+    appends, errors = [], []
+
+    def produce():
+        try:
+            for i in range(GROW_BLOCKS):
+                t1 = time.perf_counter()
+                w.rf_write(ext[i * blk:(i + 1) * blk])
+                appends.append(time.perf_counter() - t1)
+                time.sleep(0.1)
+        except BaseException as e:       # raised again in this thread
+            errors.append(e)
+
+    producer = threading.Thread(target=produce, name="files-writer")
+    ticks, reads = [], []
+    reset_counts()
+    producer.start()
+    for _ in range(FILES_TICKS):
+        read0 = eng.samples_read
+        t1 = time.perf_counter()
+        ds_live.bnds_update()
+        eng.tick(cfg)
+        ticks.append(time.perf_counter() - t1)
+        reads.append(eng.samples_read - read0)
+        time.sleep(0.1)
+    producer.join(60)
+    check(not producer.is_alive() and not errors,
+          f"files growing: the writer failed {errors}")
+    ds_live.bnds_update()
+    res = eng.tick(cfg)
+    torch.cuda.synchronize()
+    add_counts(from_files, read_counts())
+    mem_live.append(ext)
+    mem_live.bnds_update()
+    want = eng_mem.tick(cfg)
+    check(ds_live.bnds[chan] == (start, start + n + len(ext) - 1)
+          and eng.next_sample == eng_mem.next_sample,
+          f"files growing: bounds {ds_live.bnds[chan]}, cursor "
+          f"{eng.next_sample} against {eng_mem.next_sample}")
+    for f in ("tile", "sxx_med_dbfs", "frame_starts", "times", "mask"):
+        check(np.array_equal(getattr(res, f), getattr(want, f)),
+              f"files growing: the final view differs from memory in {f}")
+    tick_p50, tick_p90 = (float(v) for v in
+                          np.percentile(ticks, [50, 90]) * 1e3)
+    emit({"phase": "files_growing", "card": card, "stream_seconds": 30.0,
+          "nfft": cfg.nfft, "hop": cfg.hop, "block_s": 0.1,
+          "blocks": GROW_BLOCKS, "cold_start_s": cold_s, "ticks": len(ticks),
+          "tick_p50_ms": tick_p50, "tick_p90_ms": tick_p90,
+          "tick_limit_ms": TICK_LIMIT_MS,
+          "memory_tick_p50_ms": mem_ticks.get("tick_p50_ms"),
+          "memory_tick_p90_ms": mem_ticks.get("tick_p90_ms"),
+          "tick_samples_read": reads,
+          "append_p50_ms": float(np.percentile(appends, 50) * 1e3),
+          "append_mb_per_s": ext.nbytes / sum(appends) / 1e6,
+          "final_view_bit_equal_memory": True})
+    del eng, eng_mem, mem_live, mem, x, ext
+    torch.cuda.empty_cache()
+
+    # 6. what the files launched
+    for k in ("sti_psd", "median", "big_psd"):
+        check(from_files[k] > 0, f"files: kernel {k} was never launched")
+    emit({"phase": "files", "card": card, "launches": from_files})
+    return from_files, top
+
+
 def phase_b2_batched(dev, card, rng):
     """B2 over a batch of requests against its plain version
     (median_bisect per request) and np.median, bit for bit, at the merged
@@ -1488,11 +2030,10 @@ def phase_filter(dev, card, seconds: int = 30, sr: int = 1_000_000):
     torch.cuda.empty_cache()
 
 
-def run_cli(argv, **datasets):
-    """Parse ``argv`` with the port CLI's parser, put the opened datasets
-    in the place of their path arguments (``dataset=`` / ``datasets=``),
-    run the command with every launch count at 0, and return (its last
-    JSON line, what it wrote to stderr, the launches, its wall seconds)."""
+def run_cli(argv):
+    """Parse ``argv`` with the port CLI's parser, run the command with every
+    launch count at 0, and return (the JSON it printed last, what it wrote
+    to stderr, the launches, its wall seconds)."""
     import contextlib
     import io
 
@@ -1501,8 +2042,6 @@ def run_cli(argv, **datasets):
     from pyspectrogram_tpu_torch.clients import cli
 
     args = cli.build_parser().parse_args([str(a) for a in argv])
-    for k, v in datasets.items():
-        setattr(args, k, v)
     out, err = io.StringIO(), io.StringIO()
     reset_counts()
     t0 = time.perf_counter()
@@ -1511,19 +2050,24 @@ def run_cli(argv, **datasets):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     run = read_counts()
-    lines = out.getvalue().strip().splitlines()
-    check(rc == 0 and lines, f"cli {argv[0]}: exit {rc}, stdout "
-                             f"{out.getvalue()[-400:]!r}")
-    return json.loads(lines[-1]), err.getvalue(), run, wall_s
+    text = out.getvalue().strip()
+    check(rc == 0 and text, f"cli {argv[0]}: exit {rc}, stdout "
+                            f"{text[-400:]!r}")
+    # info prints one indented object, the others one line each
+    res = json.loads(text if argv[0] == "info" else text.splitlines()[-1])
+    return res, err.getvalue(), run, wall_s
 
 
-def phase_cli(dev, card, ds, ds_long, tones, tmp, window_s: float = 30.0):
+def phase_cli(dev, card, tmp, long_top, window_s: float = 30.0):
     """The pstpu-torch commands as a user runs them, through
-    ``build_parser()``, with in-memory captures in the place of the
-    dataset paths: sti at the headline shape (+ .npz and a saved session,
-    held against the same command on the CPU), resume, psd, sti-batch over
-    three captures, stream with and without --hop 2048, watch at a
-    ``window_s`` window, and sti at nfft 65536. Each command's peaks must
+    ``build_parser()``, on Digital RF directories: synth writes three
+    captures of the headline's 2,097,152 samples, info describes one
+    (against RFDataset's bounds), then sti at the headline shape (+ .npz
+    and a saved session, held against the same command on the CPU),
+    resume, psd, sti-batch over the three, stream with and without --hop
+    2048, filter (its new channel read back and held against filter_signal
+    on the CPU), and on the files phase's capture ``long_top`` watch at a
+    ``window_s`` window and sti at nfft 65536. Each command's peaks must
     be within 0.1 dB of 0 dBFS and its kernels launched. Returns the
     launch counts."""
     import importlib.util
@@ -1532,52 +2076,75 @@ def phase_cli(dev, card, ds, ds_long, tones, tmp, window_s: float = 30.0):
     import numpy as np
 
     from pyspectrogram_tpu_torch.display import sti_tile
-    from pyspectrogram_tpu_torch.io.memory import MemoryDataset
+    from pyspectrogram_tpu_torch.io import RFDataset
+    from pyspectrogram_tpu_torch.ops.filters import filter_signal
 
-    sr = float(ds.sr_dict[ds.channels[0]])
+    sr = 1_000_000
     renderer = ("matplotlib" if importlib.util.find_spec("matplotlib")
                 else "pixels" if importlib.util.find_spec("PIL") else None)
     check(renderer is not None, "cli: neither matplotlib nor PIL is "
                                 "installed, so no PNG can be written")
-    head = ("--nfft", 4096, "--nint", 4, "--ntime", 128)
-    batch = [MemoryDataset(two_tone(128 * 4096 * 4, sr, tones, 1e-3,
-                                    seed=20 + i), sr, channel=f"cap{i}")
-             for i in range(3)]
     t = Path(tmp)
+    caps = [t / f"cap{i}" for i in range(3)]
+    synth = []
+    for i, cap in enumerate(caps):
+        res, _, _, wall_s = run_cli(
+            ["synth", "--out", cap, "--channel", f"cap{i}", "--n-samples",
+             128 * 4096 * 4, "--sample-rate", sr, "--nsub", 2,
+             "--noise-rms", 1e-3])
+        check(res["n_samples"] == 128 * 4096 * 4 and res["channel"] ==
+              f"cap{i}", f"cli_synth: {res}")
+        synth.append(wall_s)
+    emit({"phase": "cli_synth", "card": card, "captures": len(caps),
+          "n_samples": 128 * 4096 * 4, "nsub": 2, "wall_s": synth,
+          "mb_per_s": [128 * 4096 * 4 * 16 / s / 1e6 for s in synth]})
+    info, _, _, info_s = run_cli(["info", caps[0]])
+    ds0 = RFDataset(caps[0])
+    check(info["cap0"]["bounds"] == list(ds0.bnds["cap0"])
+          and info["cap0"]["num_subchannels"] == 2
+          and info["cap0"]["sample_rate"] == str(sr),
+          f"cli_info: {info}")
+    emit({"phase": "cli_info", "card": card, "wall_s": info_s,
+          "bounds": info["cap0"]["bounds"]})
+    head = ("--nfft", 4096, "--nint", 4, "--ntime", 128)
+    on = ("--device", dev)
     cmds = [
-        ("sti", ["sti", "MEM", *head, "--out", t / "sti.png", "--npz",
-                 t / "sti.npz", "--save-session", t / "session.npz"],
-         dict(dataset=ds), ("sti_psd", "median")),
-        ("resume", ["resume", t / "session.npz", "--out", t / "resumed.png"],
-         dict(dataset=ds), ("sti_psd", "median")),
-        ("psd", ["psd", "MEM", *head, "--out", t / "psd.csv"],
-         dict(dataset=ds), ("sti_psd", "median")),
-        ("sti_batch", ["sti-batch", "A", "B", "C", *head, "--out-dir",
-                       t / "batch"], dict(datasets=batch),
-         ("sti_psd", "median_batched")),
-        ("stream", ["stream", "MEM", "--nfft", 4096, "--cols-per-block", 8,
-                    "--ring-len", 256, "--out", t / "stream.png"],
-         dict(dataset=ds), ("sti_psd", "median")),
-        ("stream_hop2048", ["stream", "MEM", "--nfft", 4096, "--hop", 2048,
+        ("sti", ["sti", caps[0], *head, "--out", t / "sti.png", "--npz",
+                 t / "sti.npz", "--save-session", t / "session.npz", *on],
+         ("sti_psd", "median")),
+        ("resume", ["resume", t / "session.npz", "--out", t / "resumed.png",
+                    *on], ("sti_psd", "median")),
+        ("psd", ["psd", caps[0], *head, "--out", t / "psd.csv", *on],
+         ("sti_psd", "median")),
+        ("sti_batch", ["sti-batch", *caps, *head, "--out-dir", t / "batch",
+                       *on], ("sti_psd", "median_batched")),
+        ("stream", ["stream", caps[0], "--nfft", 4096, "--cols-per-block", 8,
+                    "--ring-len", 256, "--out", t / "stream.png", *on],
+         ("sti_psd", "median")),
+        ("stream_hop2048", ["stream", caps[0], "--nfft", 4096, "--hop", 2048,
                             "--cols-per-block", 8, "--ring-len", 256,
-                            "--out", t / "stream_hop.png"],
-         dict(dataset=ds), ("stream_psd", "median")),
-        ("watch", ["watch", "MEM", "--nfft", 4096, "--hop", 2048, "--ntime",
-                   100, "--window-s", window_s, "--refresh-s", 0.0,
-                   "--iterations", 4, "--crange", -80, 0, "--out",
-                   t / "watch.png"], dict(dataset=ds_long),
+                            "--out", t / "stream_hop.png", *on],
          ("stream_psd", "median")),
-        ("sti_nfft65536", ["sti", "MEM", "--nfft", 1 << 16, "--nint", 4,
-                           "--ntime", 32, "--out", t / "sti65536.png"],
-         dict(dataset=ds_long), ("big_psd",)),
+        ("filter", ["filter", caps[0], "--out", t / "filtered", "--kind",
+                    "lowpass", "--cutoff", 90_000, "--nfft", 1024, *on], ()),
+        ("watch", ["watch", long_top, "--nfft", 4096, "--hop", 2048,
+                   "--ntime", 100, "--window-s", window_s, "--refresh-s",
+                   0.0, "--iterations", 4, "--crange", -80, 0, "--out",
+                   t / "watch.png", *on], ("stream_psd", "median")),
+        ("sti_nfft65536", ["sti", long_top, "--nfft", 1 << 16, "--nint", 4,
+                           "--ntime", 32, "--out", t / "sti65536.png", *on],
+         ("big_psd",)),
     ]
     total = {k: 0 for k in read_counts()}
-    for label, argv, datasets, kernels in cmds:
-        res, err, run, wall_s = run_cli([*argv, "--device", dev], **datasets)
+    for label, argv, kernels in cmds:
+        res, err, run, wall_s = run_cli(argv)
         check(all(run[k] > 0 for k in kernels),
               f"cli_{label}: launches {run}, expected {kernels}")
         add_counts(total, run)
         artifacts = []
+        line = {"phase": f"cli_{label}", "card": card,
+                "argv": [str(a) for a in argv], "wall_s": wall_s,
+                "launches": run, "renderer": renderer}
         if label == "psd":
             csv = np.loadtxt(res["csv"], delimiter=",", skiprows=1)
             check(csv.shape == (4096, 2), f"cli_psd: csv of {csv.shape}")
@@ -1593,10 +2160,35 @@ def phase_cli(dev, card, ds, ds_long, tones, tmp, window_s: float = 30.0):
             check(res["iterations"] == 4 and len(peaks) == 4,
                   f"cli_watch: {res}, stderr {err[-400:]!r}")
             artifacts.append(res["png"])
+            line["latency"] = res["latency"]
         elif label == "resume":
             check(res["shape"] == [4096, 128, 2], f"cli_resume: {res}")
             peaks = [0.0]
             artifacts.append(res["png"])
+        elif label == "filter":
+            # the new channel, read back, against filter_signal on the CPU
+            lo, hi = ds0.bnds["cap0"]
+            x = ds0.read(lo, hi - lo + 1, "cap0")[:, 0]
+            want = filter_signal(x, float(sr), "lowpass", 90_000.0,
+                                 nfft=1024, device="cpu").astype(np.complex64)
+            out = RFDataset(t / "filtered")
+            check(out.channels == ["cap0_filtered"]
+                  and out.bnds["cap0_filtered"] == (lo, lo + len(want) - 1),
+                  f"cli_filter: wrote {out.channels} {out.bnds}")
+            got = out.reader.read_vector_raw(lo, len(want),
+                                             "cap0_filtered")[:, 0]
+            d = float(np.abs(got - want)[1024:-1024].max())
+            check(res["n_samples"] == len(want) and d <= 1e-5,
+                  f"cli_filter: the channel differs from the CPU's by {d}")
+            k = np.abs(np.fft.fft(got[1024:1024 + 65536]))
+            peaks = [float(20 * np.log10(k.max() / 65536))]
+            line.update(max_abs_diff_vs_cpu=d, atol=1e-5,
+                        kept_tone_hz=float(np.fft.fftfreq(65536, 1 / sr)[
+                            int(k.argmax())]))
+            check(abs(line["kept_tone_hz"] - sr / 16) <= sr / 65536,
+                  f"cli_filter: kept tone at {line['kept_tone_hz']} Hz")
+            artifacts.append(t / "filtered" / "cap0_filtered"
+                             / "drf_properties.h5")
         else:
             peaks = [res["peak_dbfs"]]
             artifacts.append(res["png"])
@@ -1605,17 +2197,14 @@ def phase_cli(dev, card, ds, ds_long, tones, tmp, window_s: float = 30.0):
         for a in artifacts:
             check(Path(a).is_file() and Path(a).stat().st_size > 0,
                   f"cli_{label}: no {a}")
-        line = {"phase": f"cli_{label}", "card": card,
-                "argv": [str(a) for a in argv], "wall_s": wall_s,
-                "launches": run, "peaks_dbfs": peaks,
-                "artifacts": [Path(a).name for a in artifacts]
-                + (["sti.npz", "session.npz"] if label == "sti" else []),
-                "renderer": renderer}
+        line.update(peaks_dbfs=peaks, artifacts=[Path(a).name for a in
+                                                 artifacts]
+                    + (["sti.npz", "session.npz"] if label == "sti" else []))
         if label == "sti":
             # the same command on the CPU; the .npz on the card's renderer
-            cpu, _, _, cpu_s = run_cli([*argv[:-6], "--out", t / "cpu.png",
-                                        "--npz", t / "cpu.npz", "--device",
-                                        "cpu"], **datasets)
+            cpu, _, _, cpu_s = run_cli(["sti", caps[0], *head, "--out",
+                                        t / "cpu.png", "--npz",
+                                        t / "cpu.npz", "--device", "cpu"])
             a, b = np.load(t / "sti.npz"), np.load(t / "cpu.npz")
             check(np.array_equal(a["freqs"], b["freqs"])
                   and np.array_equal(a["times"], b["times"]),
@@ -1634,8 +2223,6 @@ def phase_cli(dev, card, ds, ds_long, tones, tmp, window_s: float = 30.0):
             line.update(cpu_wall_s=cpu_s, max_db_diff_vs_cpu=d,
                         p50_column_db=res["p50_column_db"],
                         sti_tile_equal_cpu=True)
-        if label == "watch":
-            line["latency"] = res["latency"]
         emit(line)
     return total
 
@@ -1747,13 +2334,6 @@ RECIPE_PATHS = "/tmp/cookbook_"
 #: the standing dB tolerance of a port result against another run: bins
 #: within 60 dB of a tone's column peak, 30 dB of a noise column's
 DB_ATOL = 1e-4
-#: write_capture and RFDataset calls one run of the cookbook's session
-#: blocks makes (captures in §1 and §5; opened in §1, §5, and by the
-#: processors of §4 and §7), and the rank script across its ranks (rank 0
-#: writes, every rank opens); the demo's capture is one of each
-COOKBOOK_SUBSTITUTIONS = {"write_capture": 2, "RFDataset": 6}
-MESH_SUBSTITUTIONS = {"write_capture": 1, "RFDataset": 4}
-DEMO_SUBSTITUTIONS = {"write_capture": 1, "RFDataset": 1}
 #: the kernels each recipe must launch on the card (read_counts' names):
 #: at ntime <= 32 a median is the sorting network, so B2 runs in §6's
 #: 64-column batch and the demo's 128-column requests; §8's hop is B3's
@@ -1791,90 +2371,6 @@ def for_device(src: str, device: str, root) -> str:
             .replace(RECIPE_PATHS, f"{root}/"))
 
 
-class MemoryCaptures:
-    """The recipes' Digital RF captures served from memory, for a machine
-    without h5py: while :meth:`installed`, ``io.synthetic.write_capture``
-    records its arguments in the capture directory (a JSON file, no HDF5)
-    and ``RFDataset(top)`` (the ``io`` package's, and the one the
-    processor opens a path with) returns an ``io.memory.MemoryDataset``
-    of the samples write_capture would have written: the same
-    ``io.synthetic.tone_signal`` at its rate, start index, scale and
-    seed, in complex64. Every replaced call is counted."""
-
-    FILE = "memory_capture.json"
-
-    def __init__(self):
-        from pyspectrogram_tpu_torch.io import synthetic
-
-        self.signature = inspect.signature(synthetic.write_capture)
-        self.counts = {"write_capture": 0, "RFDataset": 0}
-
-    def write_capture(self, top_dir, *args, **kwargs) -> dict:
-        import numpy as np
-
-        bound = self.signature.bind(str(top_dir), *args, **kwargs)
-        bound.apply_defaults()
-        a = dict(bound.arguments)
-        check(a["kind"] == "tone" and a["gap"] is None
-              and np.dtype(a["dtype"]) == np.complex64,
-              f"memory captures serve gapless complex64 tones, not {a}")
-        a["dtype"] = "complex64"
-        Path(top_dir).mkdir(parents=True, exist_ok=True)
-        (Path(top_dir) / self.FILE).write_text(json.dumps(a))
-        self.counts["write_capture"] += 1
-        return a
-
-    def open(self, top):
-        from fractions import Fraction
-
-        import numpy as np
-
-        from pyspectrogram_tpu_torch.io.memory import MemoryDataset
-        from pyspectrogram_tpu_torch.io.synthetic import tone_signal
-
-        a = json.loads((Path(top) / self.FILE).read_text())
-        num, den = a["sample_rate_numerator"], a["sample_rate_denominator"]
-        sr = num / den
-        start = a["start_global_index"]
-        if start is None:
-            start = int(1451661840 * sr)
-        freqs = a["freqs_hz"] or [(i + 1) * sr / 16.0
-                                  for i in range(a["num_subchannels"])]
-        x = tone_signal(a["n_samples"], sr, freqs, noise_rms=a["noise_rms"],
-                        seed=a["seed"])
-        x = (x * (1.0 if a["scale"] is None else a["scale"])).astype(
-            np.complex64)
-        self.counts["RFDataset"] += 1
-        # float samples are full scale at 1.0 (io.drf_format.get_ref)
-        return MemoryDataset(x, Fraction(num, den), channel=a["channel"],
-                             start=start, ref=1.0)
-
-    @contextlib.contextmanager
-    def installed(self):
-        import pyspectrogram_tpu_torch.io as pio
-        from pyspectrogram_tpu_torch.io import synthetic
-        from pyspectrogram_tpu_torch.runtime import processor
-
-        captures, real = self, pio.RFDataset
-
-        class Served(real):
-            # a path opens as its MemoryDataset (not a Served, so
-            # __init__ does not run); an opened dataset stays as it is
-            def __new__(cls, top, *args, **kwargs):
-                return top if isinstance(top, real) else captures.open(top)
-
-        saved = [(synthetic, "write_capture"), (pio, "RFDataset"),
-                 (processor, "RFDataset")]
-        old = [getattr(m, k) for m, k in saved]
-        synthetic.write_capture = self.write_capture
-        pio.RFDataset = processor.RFDataset = Served
-        try:
-            yield self
-        finally:
-            for (m, k), v in zip(saved, old):
-                setattr(m, k, v)
-
-
 def synchronize(device: str) -> None:
     import torch
 
@@ -1884,62 +2380,57 @@ def synchronize(device: str) -> None:
 
 def run_cookbook(device: str, root):
     """Every session block of docs/cookbook_torch.md, section by section
-    in one namespace, with ``device`` in its device line, its files under
-    ``root`` and its captures from :class:`MemoryCaptures`. Returns (the namespace, {label: (seconds,
-    launches)}, the substitutions made). Fails if a thread the blocks
-    started is still alive after them."""
+    in one namespace, with ``device`` in its device line and its captures
+    and files under ``root``. Returns (the namespace, {label: (seconds,
+    launches)}). Fails if a thread the blocks started is still alive after
+    them."""
     import threading
 
     before = set(threading.enumerate())
-    captures = MemoryCaptures()
     ns = {"__name__": "cookbook"}
     runs = {}
-    with captures.installed():
-        for label, session, _ in cookbook_recipes(COOKBOOK.read_text()):
-            code = compile(for_device(session, device, root),
-                           f"{COOKBOOK}#{label}", "exec")
-            reset_counts()
-            t0 = time.perf_counter()
-            exec(code, ns)  # noqa: S102
-            synchronize(device)
-            runs[label] = (time.perf_counter() - t0, read_counts())
+    for label, session, _ in cookbook_recipes(COOKBOOK.read_text()):
+        code = compile(for_device(session, device, root),
+                       f"{COOKBOOK}#{label}", "exec")
+        reset_counts()
+        t0 = time.perf_counter()
+        exec(code, ns)  # noqa: S102
+        synchronize(device)
+        runs[label] = (time.perf_counter() - t0, read_counts())
     left = [t.name for t in set(threading.enumerate()) - before
             if t.is_alive()]
     check(not left, f"cookbook on {device}: threads still running {left}")
-    return ns, runs, dict(captures.counts)
+    return ns, runs
 
 
 def cookbook_rank(rank: int, world: int, port: int, src: str,
                   out_dir: str) -> None:
     """One rank of the §5 rank script (torch.multiprocessing, spawn), with
-    the environment torchrun gives a rank; writes its seconds, launches and
-    substitutions to ``out_dir``/rank{rank}.json."""
+    the environment torchrun gives a rank; writes its seconds and launches
+    to ``out_dir``/rank{rank}.json."""
     import os
 
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
                       MASTER_PORT=str(port))
-    captures = MemoryCaptures()
     t0 = time.perf_counter()
-    with captures.installed():
-        code = compile(src, f"{COOKBOOK}#cookbook_5 rank {rank}", "exec")
-        exec(code, {"__name__": "__main__"})  # noqa: S102
+    code = compile(src, f"{COOKBOOK}#cookbook_5 rank {rank}", "exec")
+    exec(code, {"__name__": "__main__"})  # noqa: S102
     import torch
 
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(
-        {"seconds": time.perf_counter() - t0, "launches": read_counts(),
-         "substitutions": captures.counts}))
+        {"seconds": time.perf_counter() - t0, "launches": read_counts()}))
 
 
 def run_cookbook_mesh(device: str, root):
     """The §5 rank script on MESH_RANKS spawned ranks, as ``torchrun
     --nproc-per-node 4`` starts it (gloo unless each rank has a card of
-    its own), captures from :class:`MemoryCaptures`. A rank's exception
-    fails the run, and ranks still running after 300 s are killed and fail
-    it. Returns (rank 0's saved
-    result, each rank's record)."""
+    its own; rank 0 writes the capture, every rank opens it). A rank's
+    exception fails the run, and ranks still running after 300 s are
+    killed and fail it. Returns (rank 0's saved result, each rank's
+    record)."""
     import numpy as np
     import torch.multiprocessing as mp
 
@@ -2093,24 +2584,24 @@ def demo_vs(out, ref, printed: str, ref_printed: str) -> dict:
 
 
 def phase_recipes(card) -> dict:
-    """The port's user recipes on the card, each held against the same
-    recipe on the CPU in this process: every session block of
+    """The port's user recipes on the card as a user runs them, their
+    captures written and read as Digital RF files, each held against the
+    same recipe on the CPU in this process: every session block of
     docs/cookbook_torch.md (one line per section), the §5 rank script on
     four gloo ranks sharing the card (a 2x2 mesh), held against the CPU's
-    one-device §5 request, and examples/demo_torch.py's steps 2-5. This
-    machine has no h5py, so each write_capture / RFDataset pair is served
-    from memory (MemoryCaptures); the replaced calls are counted, checked
-    and printed. Returns the phase's launches, the ranks' included."""
+    one-device §5 request, and examples/demo_torch.py's step 1
+    (write_capture, RFDataset) and steps 2-5. Returns the phase's
+    launches, the ranks' included."""
     total = {k: 0 for k in read_counts()}
-    subs = {}
+    files = {}
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        ns, runs, subs["cookbook"] = run_cookbook("cuda", tmp / "card")
-        ref, cpu_runs, cpu_subs = run_cookbook("cpu", tmp / "cpu")
-        check(subs["cookbook"] == cpu_subs == COOKBOOK_SUBSTITUTIONS,
-              f"recipes: substitutions {subs['cookbook']} (card), "
-              f"{cpu_subs} (CPU), expected {COOKBOOK_SUBSTITUTIONS}")
+        ns, runs = run_cookbook("cuda", tmp / "card")
+        ref, cpu_runs = run_cookbook("cpu", tmp / "cpu")
+        files["cookbook"] = len(capture_files(tmp / "card"))
+        check(files["cookbook"] == len(capture_files(tmp / "cpu")) > 0,
+              "recipes: the cookbook wrote no HDF5 files")
         vs = cookbook_vs(ns, ref)
         for label, (seconds, run) in runs.items():
             kernels = RECIPE_KERNELS.get(label, ())
@@ -2125,11 +2616,8 @@ def phase_recipes(card) -> dict:
         t0 = time.perf_counter()
         saved, ranks = run_cookbook_mesh("cuda", tmp / "mesh")
         seconds = time.perf_counter() - t0
-        subs["mesh"] = {k: sum(r["substitutions"][k] for r in ranks)
-                        for k in MESH_SUBSTITUTIONS}
-        check(subs["mesh"] == MESH_SUBSTITUTIONS,
-              f"recipe §5: substitutions {subs['mesh']}, expected "
-              f"{MESH_SUBSTITUTIONS}")
+        files["mesh"] = len(capture_files(tmp / "mesh"))
+        check(files["mesh"] > 0, "recipe §5: rank 0 wrote no HDF5 files")
         for r, rec in enumerate(ranks):
             check(all(rec["launches"][k] > 0
                       for k in RECIPE_KERNELS["cookbook_5_mesh"]),
@@ -2149,13 +2637,10 @@ def phase_recipes(card) -> dict:
         del ref
 
         demo = load_demo()
-        captures = MemoryCaptures()
-        # the demo's step 1, served from memory
-        captures.write_capture(tmp / "capture", **demo.CAPTURE)
-        ds = captures.open(tmp / "capture")
-        subs["demo"] = dict(captures.counts)
-        check(subs["demo"] == DEMO_SUBSTITUTIONS,
-              f"recipe demo: substitutions {subs['demo']}")
+        # the demo's step 1, as its main() takes it
+        demo.write_capture(tmp / "capture", **demo.CAPTURE)
+        ds = demo.RFDataset(tmp / "capture")
+        files["demo"] = len(capture_files(tmp / "capture"))
         printed, seconds, run = run_demo(demo, ds, "cuda", tmp / "demo_card")
         cpu_printed, cpu_seconds, _ = run_demo(demo, ds, "cpu",
                                                tmp / "demo_cpu")
@@ -2170,7 +2655,7 @@ def phase_recipes(card) -> dict:
     for k in ("sti_psd", "median", "median_batched", "stream_psd"):
         check(total[k] > 0, f"recipes: kernel {k} was never launched")
     emit({"phase": "recipes", "card": card,
-          "seconds": time.perf_counter() - t_phase, "substitutions": subs,
+          "seconds": time.perf_counter() - t_phase, "hdf5_files": files,
           "launches": total})
     return total
 
@@ -3370,12 +3855,18 @@ def main() -> int:
     add_counts(launches, live_counts)
     add_counts(launches, phase_live_tabs(dev, card, x_long, sr))
 
-    # the port's own entry points: the pstpu-torch commands and the viewer
-    # (reading from memory: the card's machine has no HDF5 reader), then
-    # the filters at full width
+    # the main path from Digital RF files on disk, written and read by the
+    # port's own HDF5 layer; then the pstpu-torch commands on directories
+    # (the files phase's capture among them) and the viewer, then the
+    # filters at full width
     ds_long = MemoryDataset(x_long[:31 * sr], sr)
     with tempfile.TemporaryDirectory() as tmp:
-        add_counts(launches, phase_cli(dev, card, ds, ds_long, tones, tmp))
+        files_counts, long_top = phase_files(dev, card, tmp, live_ticks)
+        add_counts(launches, files_counts)
+        cli_counts = phase_cli(dev, card, tmp, long_top)
+        check(cli_counts["stream_psd"] > 0,
+              "cli: B3 was never launched from the files")
+        add_counts(launches, cli_counts)
         add_counts(launches, phase_gui(dev, card, ds, ds_long, tones, tmp))
     del x_long, ds_long
     phase_filter(dev, card)
@@ -3401,12 +3892,14 @@ def main() -> int:
     # library_ms: one PyTorch call computing the same function, where one
     # exists; no single call computes B1, B3 or B4 (window + FFT + |X|^2 +
     # Welch sum + fftshift), so theirs is null and fft_alone_ms times
-    # torch.fft.fft over the same windowed frames for context
+    # torch.fft.fft over the same windowed frames for context;
+    # files_launches: those the files phase made reading from disk
     emit({"kernels": [
         {"name": "sti_psd", "route": "cuda",
          "source": "pyspectrogram_tpu_torch/csrc/sti_psd.cu",
          "replaces": "pyspectrogram_tpu/kernels/sti_pallas.py:409",
-         "launches": launches["sti_psd"], "max_abs_err": b1_err,
+         "launches": launches["sti_psd"],
+         "files_launches": files_counts["sti_psd"], "max_abs_err": b1_err,
          "ms": head["b1_ms"], "plain_ms": head["b1_plain_ms"],
          "device_ms": head["b1_device_ms"],
          "bound_ms": head["b1_bound"][0], "bound_by": head["b1_bound"][1],
@@ -3414,7 +3907,8 @@ def main() -> int:
         {"name": "median", "route": "cuda",
          "source": "pyspectrogram_tpu_torch/csrc/median.cu",
          "replaces": "pyspectrogram_tpu/kernels/median_pallas.py:77",
-         "launches": launches["median"], "max_abs_err": 0.0,
+         "launches": launches["median"],
+         "files_launches": files_counts["median"], "max_abs_err": 0.0,
          "ms": head["b2_ms"], "plain_ms": head["b2_plain_ms"],
          "device_ms": head["b2_device_ms"],
          "bound_ms": head["b2_bound"][0], "bound_by": head["b2_bound"][1],
@@ -3440,6 +3934,7 @@ def main() -> int:
          "source": "pyspectrogram_tpu_torch/csrc/stream_psd.cu",
          "replaces": "pyspectrogram_tpu/kernels/sti_pallas.py:767",
          "launches": launches["stream_psd"],
+         "files_launches": files_counts["stream_psd"],
          "max_abs_err": max(b3_err, b3["err"]),
          "ms": b3["ms"], "plain_ms": b3["plain_ms"],
          "device_ms": b3["device_ms"],
@@ -3448,7 +3943,8 @@ def main() -> int:
         {"name": "big_psd", "route": "cuda",
          "source": "pyspectrogram_tpu_torch/csrc/big_psd.cu",
          "replaces": "pyspectrogram_tpu/kernels/sti_pallas.py:970",
-         "launches": launches["big_psd"], "max_abs_err": b4_err,
+         "launches": launches["big_psd"],
+         "files_launches": files_counts["big_psd"], "max_abs_err": b4_err,
          "ms": b4[1 << 16][0], "plain_ms": b4[1 << 16][1],
          "device_ms": b4[1 << 16][4],
          "bound_ms": b4[1 << 16][3][0], "bound_by": b4[1 << 16][3][1],

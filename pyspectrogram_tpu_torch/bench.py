@@ -494,7 +494,7 @@ def bench_e2e(gb=0.5, nfft=4096, nint=2, ntime=256, nsub=2, cache_root=None,
     The capture is ``gb`` GiB of noise at 4 MS/s, complex64 ("c64") or
     int16 ("i16", half the bytes, its dBFS reference in the power scale):
     with ``cache_root`` a Digital RF capture written under it as the JAX
-    bench writes it (and reused when complete; needs h5py), else one made
+    bench writes it (and reused when complete; through io.hdf5), else one made
     from a fixed seed and held in memory (io.memory.MemoryDataset).
 
     Returns (e2e_samples_per_sec, host_samples_per_sec, meta): host_... is
@@ -726,7 +726,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="capture dtype for --e2e (i16 halves the bytes)")
     ap.add_argument("--e2e-cache", default=None, metavar="DIR",
                     help="read --e2e's capture as Digital RF files written "
-                         "under DIR (needs h5py; default: held in memory)")
+                         "under DIR (default: held in memory)")
     ap.add_argument("--snapshot", default=None, metavar="PATH",
                     help="run the --all suite and pin it as JSON "
                          "(docs/bench_snapshot_torch.json is the pin)")

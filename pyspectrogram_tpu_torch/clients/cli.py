@@ -26,8 +26,8 @@ writer and config: the port imports nothing of that package.
 
 :func:`build_parser` returns the parser; a dataset argument may also be an
 opened RFDataset (such as io.memory.MemoryDataset) set on the parsed
-arguments before ``args.fn(args)``, which is how a capture held in memory
-is served where there is no HDF5 reader.
+arguments before ``args.fn(args)``, which serves a capture held in
+memory.
 """
 
 from __future__ import annotations

@@ -182,7 +182,7 @@ class MainWindow(QtWidgets.QMainWindow):
         each tab its plot classes (see :func:`figure_kit`);
         ``open_dataset``, when given, maps the chosen directory to what
         the processor opens (an opened RFDataset such as
-        io.memory.MemoryDataset, where there is no HDF5 reader)."""
+        io.memory.MemoryDataset)."""
         super().__init__()
         self.device = device
         self.figure_kit = figure_kit

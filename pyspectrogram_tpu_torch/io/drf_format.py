@@ -202,7 +202,7 @@ class ChannelProperties:
 
 
 def write_properties(path: Path, props: ChannelProperties) -> None:
-    import h5py
+    from pyspectrogram_tpu_torch.io import hdf5 as h5py
 
     path.parent.mkdir(parents=True, exist_ok=True)
     with h5py.File(path, "w") as f:
@@ -217,7 +217,7 @@ def write_properties(path: Path, props: ChannelProperties) -> None:
 
 
 def read_properties(path: Path) -> ChannelProperties:
-    import h5py
+    from pyspectrogram_tpu_torch.io import hdf5 as h5py
 
     with h5py.File(path, "r") as f:
         a = f.attrs

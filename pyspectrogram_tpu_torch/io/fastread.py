@@ -95,7 +95,7 @@ class FastSpanReader:
             fm = self._maps.get(path)
             if fm is not None and fm.mtime_ns == st.st_mtime_ns:
                 return fm
-        import h5py
+        from pyspectrogram_tpu_torch.io import hdf5 as h5py
 
         try:
             with h5py.File(path, "r") as f:

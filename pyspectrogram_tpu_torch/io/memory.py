@@ -6,7 +6,7 @@ its bounds, rate, full-scale reference and channel maps, and
 semantics (storage dtype or complex128, zero fill and a False mask outside
 the written span). A request then
 runs end to end, host assembly and prefetch branch included, without
-Digital RF files or h5py; ``append`` grows the capture for the live
+Digital RF files; ``append`` grows the capture for the live
 engine, from a writer thread while processors read it from theirs.
 """
 

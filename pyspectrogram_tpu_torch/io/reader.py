@@ -87,7 +87,7 @@ class DigitalRFReader:
         live path calls this every refresh tick (bnds_update, reference:
         drfProc.py:169-179); a full listing would make each tick
         O(capture length) for multi-hour captures."""
-        import h5py
+        from pyspectrogram_tpu_torch.io import hdf5 as h5py
 
         self._channel_props(channel)  # ChannelNotFoundError on unknowns
         subs = fmt.list_subdirs(self.top_dir / channel)
@@ -151,7 +151,7 @@ class DigitalRFReader:
              ) -> "OrderedDict[int, np.ndarray]":
         """Contiguous runs intersecting [start, start+n) as
         {global_start_index: (n, nsub) array} in native memory dtype."""
-        import h5py
+        from pyspectrogram_tpu_torch.io import hdf5 as h5py
 
         props = self._channel_props(channel)
         start = int(start_sample)
@@ -213,7 +213,7 @@ class DigitalRFReader:
             # compound -> native-complex mapping is theirs alone)
             self._mem_dtype[channel] = dt
             return dt
-        import h5py
+        from pyspectrogram_tpu_torch.io import hdf5 as h5py
 
         for sub in fmt.list_subdirs(self.top_dir / channel):
             for _, path in fmt.subdir_data_files(sub):

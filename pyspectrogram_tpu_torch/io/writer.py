@@ -121,7 +121,7 @@ class DigitalRFWriter:
     def _append_to_file(self, file_ms: int, global_start: int, disk_rows) -> None:
         import time
 
-        import h5py
+        from pyspectrogram_tpu_torch.io import hdf5 as h5py
 
         path = self.props.file_path(self.top_dir, self.channel, file_ms)
         path.parent.mkdir(parents=True, exist_ok=True)

@@ -80,10 +80,9 @@ class SpectrogramProcessor:
         mesh=None,
     ):
         """``drfdir`` is a Digital RF directory, as in the JAX package.
-        As a test seam it may also be an already opened RFDataset (such as
-        io.memory.MemoryDataset, which serves a capture from memory where
-        there is no HDF5 reader); the missing-path check then does not
-        apply.
+        It may also be an already opened RFDataset (such as
+        io.memory.MemoryDataset, which serves a capture from memory); the
+        missing-path check then does not apply.
 
         ``device`` ("cuda", "cpu", ...) is required, as for StiPipeline;
         a CUDA device on a machine without one raises here.

@@ -13,9 +13,10 @@ axes and counters equal.
 §5's rank script runs on four gloo ranks under torchrun, and rank 0's
 result is held against the JAX §5 mesh result.
 
-chip_smoke.py runs the same blocks on a card, with the captures served
-from memory (the card's machine has no h5py): the last tests run its
-helpers here and hold the memory captures to the files bit for bit.
+chip_smoke.py runs the same blocks on a card, their captures written and
+read as Digital RF files by the port's own HDF5 layer (io.hdf5): the last
+tests run its helpers here and hold their results to this file's own run
+of the blocks bit for bit.
 """
 
 import os
@@ -205,18 +206,16 @@ def test_mesh_script_under_torchrun(tmp_path, jax_ns):
 
 
 @pytest.fixture(scope="module")
-def memory_run(tmp_path_factory):
-    """chip_smoke's run of the port's blocks on the CPU, captures served
-    from memory."""
-    return chip_smoke.run_cookbook("cpu", tmp_path_factory.mktemp("memory"))
+def smoke_run(tmp_path_factory):
+    """chip_smoke's run of the port's blocks on the CPU."""
+    return chip_smoke.run_cookbook("cpu", tmp_path_factory.mktemp("smoke"))
 
 
-def test_memory_captures_equal_the_files(port_ns, memory_run):
-    """The substitution chip_smoke makes on the card: each write_capture /
-    RFDataset pair served from memory gives every result bit for bit as
-    the HDF5 files do, and the replaced calls are those it expects."""
-    ns, runs, subs = memory_run
-    assert subs == chip_smoke.COOKBOOK_SUBSTITUTIONS
+def test_memory_captures_equal_the_files(port_ns, smoke_run):
+    """chip_smoke's run of the blocks, which write and read their captures
+    as files as a user does, gives every result bit for bit as this file's
+    own run does, section by section."""
+    ns, runs = smoke_run
     assert list(runs) == [f"cookbook_{i}" for i in range(9)]
     for name in ("res", "res_1"):
         for f in ("sxx_dbfs", "sxx_med_dbfs", "freqs", "times",
@@ -235,36 +234,15 @@ def test_memory_captures_equal_the_files(port_ns, memory_run):
     assert sorted(held) == [f"cookbook_{i}" for i in range(1, 9)]
 
 
-def test_memory_captures_count_and_restore(tmp_path):
-    """Outside installed() the real write_capture and RFDataset are back;
-    a capture other than a gapless complex64 tone is refused."""
-    import pyspectrogram_tpu_torch.io as pio
-    from pyspectrogram_tpu_torch.io import synthetic
-    from pyspectrogram_tpu_torch.runtime import processor
-
-    real = (synthetic.write_capture, pio.RFDataset, processor.RFDataset)
-    caps = chip_smoke.MemoryCaptures()
-    with caps.installed():
-        synthetic.write_capture(tmp_path / "c", channel="a", n_samples=4096)
-        ds = pio.RFDataset(tmp_path / "c")
-        assert pio.RFDataset(ds) is ds           # an opened one passes
-        with pytest.raises(RuntimeError, match="gapless complex64"):
-            synthetic.write_capture(tmp_path / "d", kind="chirp")
-    assert (synthetic.write_capture, pio.RFDataset,
-            processor.RFDataset) == real
-    assert caps.counts == {"write_capture": 1, "RFDataset": 1}
-    assert ds.bnds["a"][1] - ds.bnds["a"][0] + 1 == 4096
-
-
 def test_memory_mesh_script_equals_one_device(tmp_path, port_ns):
     """chip_smoke's §5 run: four spawned gloo ranks with torchrun's
-    environment and memory captures (rank 0 writes, every rank opens);
-    rank 0's result equals the port's one-device §5 request on the files
-    bit for bit."""
+    environment (rank 0 writes the capture's files, every rank opens
+    them); rank 0's result equals the port's one-device §5 request on the
+    files bit for bit."""
     saved, ranks = chip_smoke.run_cookbook_mesh("cpu", tmp_path)
-    subs = {k: sum(r["substitutions"][k] for r in ranks)
-            for k in chip_smoke.MESH_SUBSTITUTIONS}
-    assert subs == chip_smoke.MESH_SUBSTITUTIONS
+    assert len(ranks) == chip_smoke.MESH_RANKS
+    assert all(set(r) == {"seconds", "launches"} for r in ranks)
+    assert chip_smoke.capture_files(tmp_path)
     np.testing.assert_array_equal(saved["sxx_dbfs"],
                                   port_ns["res_1"].sxx_dbfs)
     np.testing.assert_array_equal(saved["sxx_med_dbfs"],

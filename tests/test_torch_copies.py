@@ -64,15 +64,18 @@ VERBATIM = ["utils/config.py", "utils/errors.py", "utils/log.py",
             "io/fastread.py", "io/writer.py", "io/synthetic.py",
             "display/colormap.py", "clients/qt_backend.py",
             "clients/_qt_headless.py"]
+#: the one line by which a copied io module reaches HDF5
+HDF5_IMPORT = "from pyspectrogram_tpu_torch.io import hdf5 as h5py"
 NOTE = re.compile(r"\n\nCopy of pyspectrogram_tpu/[\w/]+\.py: the port "
                   r"imports nothing of that\npackage\.\n")
 
 
 def _as_original(text: str) -> str:
     """Port source with the import paths mapped back to the JAX package's
-    and the docstring note that names the original dropped."""
-    return NOTE.sub("\n", text).replace("pyspectrogram_tpu_torch",
-                                        "pyspectrogram_tpu")
+    (the port's own HDF5 layer back to h5py) and the docstring note that
+    names the original dropped."""
+    return NOTE.sub("\n", text).replace(HDF5_IMPORT, "import h5py").replace(
+        "pyspectrogram_tpu_torch", "pyspectrogram_tpu")
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

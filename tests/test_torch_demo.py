@@ -10,8 +10,9 @@ filter is torch.fft against jnp.fft in float32, and the WAV is that
 signal's real part scaled to 0.9 of full scale and rounded, so a value at
 a rounding boundary may land one step apart.
 
-chip_smoke.py runs the demo's steps 2-5 on a card with the capture served
-from memory; the last test runs that path here against the files.
+chip_smoke.py runs the demo's step 1 (write_capture, RFDataset) and steps
+2-5 on a card; the last test runs that path here against the demo's own
+run.
 """
 
 import contextlib
@@ -111,14 +112,14 @@ def test_demo_wav_matches_jax(runs):
 
 
 def test_demo_steps_from_memory(tmp_path, runs):
-    """chip_smoke's demo path: steps 2-5 on the capture served from memory
-    (MemoryCaptures of the demo's CAPTURE) write what the files give, held
-    by the phase's own comparison."""
+    """chip_smoke's demo path: step 1 as the demo's main() takes it (its
+    CAPTURE written, then opened as a Digital RF directory) and steps 2-5
+    write what the demo's own run writes, held by the phase's own
+    comparison."""
     demo = chip_smoke.load_demo()
-    caps = chip_smoke.MemoryCaptures()
-    caps.write_capture(tmp_path / "capture", **demo.CAPTURE)
-    ds = caps.open(tmp_path / "capture")
-    assert caps.counts == chip_smoke.DEMO_SUBSTITUTIONS
+    demo.write_capture(tmp_path / "capture", **demo.CAPTURE)
+    ds = demo.RFDataset(tmp_path / "capture")
+    assert chip_smoke.capture_files(tmp_path / "capture")
     printed, _, _ = chip_smoke.run_demo(demo, ds, "cpu", tmp_path)
     pdir, pprinted = runs["port"]
     held = chip_smoke.demo_vs(tmp_path, pdir, printed, pprinted)

@@ -1,7 +1,7 @@
 """Every module of the port, chip_smoke.py, kernel_times.py and
-examples/demo_torch.py import without loading jax or anything of the JAX
-package (pyspectrogram_tpu): the port keeps its own copies of what it
-uses.
+examples/demo_torch.py import without loading jax, anything of the JAX
+package (pyspectrogram_tpu) or h5py: the port keeps its own copies of what
+it uses, and its own HDF5 layer (io.hdf5).
 
 One case per module (pkgutil.walk_packages over the port). A module-scoped
 fixture imports them all in turn in ONE fresh interpreter (JAX_PLATFORMS=cpu,
@@ -44,8 +44,7 @@ for name in sys.argv[1:]:
     except BaseException as e:
         error = repr(e)
     bad = sorted(m for m in sys.modules
-                 if m == "jax" or m.startswith("jax.")
-                 or m.split(".")[0] == "pyspectrogram_tpu")
+                 if m.split(".")[0] in ("jax", "h5py", "pyspectrogram_tpu"))
     print({TAG!r} + json.dumps({{"name": name, "error": error, "bad": bad}}),
           flush=True)
 """
@@ -79,6 +78,7 @@ def in_sequence():
 def test_every_module_is_listed():
     """The walk found the port's subpackages and their modules."""
     for name in ("pyspectrogram_tpu_torch.io.reader",
+                 "pyspectrogram_tpu_torch.io.hdf5",
                  "pyspectrogram_tpu_torch.native.ingest",
                  "pyspectrogram_tpu_torch.clients._qt_headless",
                  "pyspectrogram_tpu_torch.kernels.median_cuda",
