@@ -1197,6 +1197,23 @@ def same_result(a, b, what: str) -> None:
               f"{what}: {f} differs")
 
 
+FILES_START = 1451661840
+
+
+def files_capture_samples(sr: int, tones):
+    """The files phase's capture: FILES_SECONDS of the two tones, and the
+    GROW_BLOCKS blocks of 0.1 s its writer thread appends."""
+    import numpy as np
+
+    from pyspectrogram_tpu_torch.io.synthetic import tone_signal
+
+    x = two_tone(FILES_SECONDS * sr, sr, tones, noise_rms=1e-3, seed=1)
+    ext = tone_signal(GROW_BLOCKS * (sr // 10), sr, tones,
+                      start_sample=len(x), noise_rms=1e-3,
+                      seed=3).astype(np.complex64)
+    return x, ext
+
+
 def phase_files(dev, card, tmp, mem_ticks: dict):
     """The main path from Digital RF files on disk, read and written by the
     port's own HDF5 layer (io.hdf5): DigitalRFWriter writes the 30 s
@@ -1221,7 +1238,6 @@ def phase_files(dev, card, tmp, mem_ticks: dict):
     from pyspectrogram_tpu_torch import SpectrogramConfig
     from pyspectrogram_tpu_torch.io import DigitalRFWriter, RFDataset
     from pyspectrogram_tpu_torch.io.memory import MemoryDataset
-    from pyspectrogram_tpu_torch.io.synthetic import tone_signal
     from pyspectrogram_tpu_torch.models import sti
     from pyspectrogram_tpu_torch.runtime import LiveStreamEngine
 
@@ -1242,9 +1258,9 @@ def phase_files(dev, card, tmp, mem_ticks: dict):
     # 1. make the samples, then write them as write_capture does (its
     # channel, start and cadences), the write alone timed
     t0 = time.perf_counter()
-    x = two_tone(n, sr, tones, noise_rms=1e-3, seed=1)
+    x, ext = files_capture_samples(sr, tones)
     synth_s = time.perf_counter() - t0
-    start = int(1451661840 * sr)
+    start = int(FILES_START * sr)
     w = DigitalRFWriter(top, "ch0", np.complex64, start_global_index=start,
                         sample_rate_numerator=sr, num_subchannels=2)
     t0 = time.perf_counter()
@@ -1397,8 +1413,6 @@ def phase_files(dev, card, tmp, mem_ticks: dict):
                             stream_seconds=30.0, display_tile=True,
                             color_range_db=COLOR_RANGE_DB, streaming=True)
     blk = sr // 10
-    ext = tone_signal(GROW_BLOCKS * blk, sr, tones, start_sample=n,
-                      noise_rms=1e-3, seed=3).astype(np.complex64)
     ds_live = RFDataset(top)
     t0 = time.perf_counter()
     eng = LiveStreamEngine(ds_live, cfg, dev)
@@ -1472,6 +1486,250 @@ def phase_files(dev, card, tmp, mem_ticks: dict):
         check(from_files[k] > 0, f"files: kernel {k} was never launched")
     emit({"phase": "files", "card": card, "launches": from_files})
     return from_files, top
+
+
+# ------------------------------------------------------------ the formats
+#: the committed captures in HDF5's newer formats (written by h5py, which
+#: the card's machine lacks), and their manifest
+FORMATS_DIR = Path(__file__).resolve().parent / "tests" / "data" / \
+    "hdf5_formats"
+
+
+def fixture_samples(spec: dict, seed: int):
+    """A fixture's (n, nsub) int16 complex ``{r, i}`` samples from its
+    manifest entry, with numpy integer arithmetic alone: on subchannel s a
+    tone of period ``periods[s]`` samples (a table of rounded cos/sin
+    values) plus noise uniform on [-noise, noise] from splitmix64 of
+    (seed, s, part, row). The same function as the fixture script's
+    (tests/torch_hdf5_fixtures.py), which wrote the files."""
+    import numpy as np
+
+    n, nsub, amp, na = spec["n"], spec["nsub"], spec["amplitude"], \
+        spec["noise"]
+    out = np.zeros((n, nsub), [("r", "<i2"), ("i", "<i2")])
+    rows = np.arange(n, dtype=np.uint64)
+    for s, period in enumerate(spec["periods"][:nsub]):
+        ph = 2 * np.pi * np.arange(period) / period
+        for part, table in (("r", amp * np.cos(ph)), ("i", amp * np.sin(ph))):
+            tone = np.round(table).astype(np.int64)[np.arange(n) % period]
+            z = (rows + np.uint64((seed * 8 + s * 2 + (part == "i")) << 32)
+                 ) * np.uint64(0x9E3779B97F4A7C15)
+            z ^= z >> np.uint64(30)
+            z *= np.uint64(0xBF58476D1CE4E5B9)
+            z ^= z >> np.uint64(27)
+            z *= np.uint64(0x94D049BB133111EB)
+            z ^= z >> np.uint64(31)
+            noise = (z % np.uint64(2 * na + 1)).astype(np.int64) - na
+            out[part][:, s] = tone + noise
+    return out
+
+
+#: what a fixture's files phase requests: B1 + B2 at the reference
+#: default, B4 at nfft 65536 (two frames), B3 through a live engine whose
+#: 2 s window covers the whole fixture
+FORMATS_REQUESTS = (("reference_default", dict(), ("sti_psd", "median")),
+                    ("nfft65536", dict(nfft=1 << 16, nint=1, ntime=2),
+                     ("big_psd",)))
+FORMATS_LIVE = dict(nfft=4096, hop=2048, ntime=100, stream_seconds=2.0,
+                    display_tile=True, color_range_db=COLOR_RANGE_DB,
+                    streaming=True)
+INT16_REF = 2.0 ** 15.5
+FORMATS_PARSES, FORMATS_READS = 20, 5
+
+
+def fixture_dataset(name: str, manifest: dict):
+    """(MemoryDataset of a fixture's regenerated samples, its directory,
+    the samples), the samples held to the manifest's digest first."""
+    import hashlib
+
+    from pyspectrogram_tpu_torch.io.memory import MemoryDataset
+
+    spec = manifest["samples"]
+    entry = manifest["fixtures"][name]
+    x = fixture_samples(spec, entry["seed"])
+    check(hashlib.sha256(x.tobytes()).hexdigest() == entry["sha256"],
+          f"formats {name}: the regenerated samples differ from the "
+          f"manifest's digest")
+    sr = spec["sample_rate"]
+    mem = MemoryDataset(x, sr, channel=manifest["channel"],
+                        start=spec["start_second"] * sr, ref=INT16_REF)
+    return mem, FORMATS_DIR / name, x
+
+
+def phase_files_formats(dev, card, tmp) -> dict:
+    """The main path from captures in HDF5's newer formats (the committed
+    fixtures, FORMATS_DIR: libver "latest" with an extensible-array index,
+    the same through shuffle + gzip + fletcher32, libver "v110" big-endian
+    with a fixed-array index), read by the port's HDF5 layer. For each:
+    the whole capture read through RFDataset (pooled and io_workers=0)
+    equal to the manifest's regenerated samples; StiPipeline.compute at
+    the reference default (B1, B2) and at nfft 65536 (B4), pooled and
+    io_workers=0, bit for bit against the same request over a
+    MemoryDataset of the samples; a LiveStreamEngine's cold start (B3)
+    bit for bit against an engine over memory; one file's open + parse
+    time and the capture's read rate beside the same for the port's own
+    earliest-format write of the samples (the parse also with io.hdf5's
+    remembered checksums cleared before each, as a first open finds
+    them), and fletcher32's rate over the chunk bytes. Returns the
+    launches made from the fixtures."""
+    import numpy as np
+    import torch
+
+    from pyspectrogram_tpu_torch import SpectrogramConfig
+    from pyspectrogram_tpu_torch.io import DigitalRFWriter, RFDataset, hdf5
+    from pyspectrogram_tpu_torch.io import hdf5_blocks
+    from pyspectrogram_tpu_torch.models import sti
+    from pyspectrogram_tpu_torch.runtime import LiveStreamEngine
+
+    manifest = json.loads((FORMATS_DIR / "manifest.json").read_text())
+    spec = manifest["samples"]
+    sr, n = spec["sample_rate"], spec["n"]
+    start = spec["start_second"] * sr
+    chan = manifest["channel"]
+    from_files = {k: 0 for k in read_counts()}
+
+    def on_files(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        add_counts(from_files, read_counts())
+        return out
+
+    def p50_s(fn, k):
+        out = []
+        for _ in range(k):
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
+        return float(np.median(out))
+
+    def parse(path):
+        """Open one file and parse what a read needs: the superblock,
+        headers, both datasets' messages, the index rows, the chunk
+        index."""
+        with hdf5.File(path) as f:
+            d = f["rf_data"]
+            f["rf_data_index"][...]
+            return d.id.get_num_chunks() if d.chunks else 0
+
+    live_cfg = SpectrogramConfig(**FORMATS_LIVE)
+    for name, entry in manifest["fixtures"].items():
+        mem, top, x = fixture_dataset(name, manifest)
+        files = [top / rel for rel in entry["files"]]
+        first = files[0].read_bytes()
+        line = {"phase": f"files_formats_{name}", "card": card,
+                "libver": entry["libver"], "superblock": first[8],
+                "chunk_index": ("extensible array" if b"EAHD" in first
+                                else "fixed array" if b"FAHD" in first
+                                else "other"),
+                "filters": entry["filters"], "byteorder": entry["byteorder"],
+                "files": len(files), "rows": n, "nsub": spec["nsub"],
+                "disk_bytes": sum(p.stat().st_size for p in files)}
+        with hdf5.File(files[0]) as f:
+            d = f["rf_data"]
+            line["rf_data"] = {"dtype": str(d.dtype), "chunks": d.chunks,
+                               "maxshape": d.maxshape,
+                               "fletcher32": d.fletcher32,
+                               "chunks_indexed": d.id.get_num_chunks()}
+        check(line["superblock"] in (2, 3) and line["chunk_index"] != "other",
+              f"formats {name}: superblock {line['superblock']}, chunk "
+              f"index {line['chunk_index']}")
+        # 1. the capture as read equals the samples
+        for workers in (None, 0):
+            ds = RFDataset(top, io_workers=workers)
+            check(ds.bnds[chan] == (start, start + n - 1)
+                  and ds.ref_dict[chan] == INT16_REF,
+                  f"formats {name}: bounds {ds.bnds}, ref {ds.ref_dict}")
+            got = ds.reader.read_vector_raw(start, n, chan)
+            check(all(np.array_equal(got[k], x[k]) for k in ("r", "i")),
+                  f"formats {name}: io_workers={workers} read differs from "
+                  f"the manifest's samples")
+        # 2. B1 + B2 and B4, pooled and io_workers=0, against memory
+        reqs = {}
+        for label, kw, kernels in FORMATS_REQUESTS:
+            cfg = SpectrogramConfig(**kw)
+            want = sti.StiPipeline(mem, cfg, device=dev).compute()
+            for workers in (None, 0):
+                before = dict(from_files)
+                pipe = sti.StiPipeline(RFDataset(top, io_workers=workers),
+                                       cfg, device=dev)
+                res = on_files(pipe.compute)
+                run = {k: from_files[k] - before[k] for k in from_files}
+                check(all(run[k] > 0 for k in kernels),
+                      f"formats {name} {label}: launches {run}, expected "
+                      f"{kernels}")
+                same_result(res, want, f"formats {name} {label} "
+                                       f"io_workers={workers} vs memory")
+            med = want.sxx_med_dbfs
+            reqs[label] = {"nfft": cfg.nfft, "ntime": cfg.ntime,
+                           "bit_equal_memory": True,
+                           "peak_dbfs": [float(med[:, s].max())
+                                         for s in range(med.shape[1])],
+                           "launches": run}
+        line["requests"] = reqs
+        # 3. B3: the live engine's cold start over the fixture
+        eng = LiveStreamEngine(RFDataset(top), live_cfg, dev)
+        before = dict(from_files)
+        res = on_files(lambda: eng.tick(live_cfg))
+        run = {k: from_files[k] - before[k] for k in from_files}
+        want = LiveStreamEngine(mem, live_cfg, dev).tick(live_cfg)
+        check(run["stream_psd"] > 0, f"formats {name} live: launches {run}")
+        for f in ("tile", "sxx_med_dbfs", "frame_starts", "times", "mask"):
+            check(np.array_equal(getattr(res, f), getattr(want, f)),
+                  f"formats {name} live: the view differs from memory in {f}")
+        line["live"] = {"nfft": live_cfg.nfft, "hop": live_cfg.hop,
+                        "stream_seconds": live_cfg.stream_seconds,
+                        "window_cols": eng.window_cols,
+                        "bit_equal_memory": True, "launches": run}
+        # 4. open + parse and read rate, beside the port's own write of the
+        # samples in the earliest format (gzip where the fixture is
+        # compressed: the port writes no shuffle or fletcher32)
+        twin = Path(tmp) / "formats" / name
+        gz = 4 if entry["filters"].get("compression") else 0
+        w = DigitalRFWriter(twin, chan, x.dtype, start_global_index=start,
+                            sample_rate_numerator=sr,
+                            num_subchannels=spec["nsub"],
+                            file_cadence_millisecs=1000,
+                            subdir_cadence_secs=3600, compression_level=gz)
+        w.rf_write(x)
+        twin_files = [p for p in capture_files(twin)
+                      if p.name.startswith("rf@")]
+        check(len(twin_files) == len(files) and
+              twin_files[0].read_bytes()[8] == 0,
+              f"formats {name}: the earliest-format twin has "
+              f"{len(twin_files)} files")
+        nbytes = x.nbytes
+        for label, where, path in (("fixture", top, files[0]),
+                                   ("earliest_twin", twin, twin_files[0])):
+            parse(path)
+            ds = RFDataset(where)
+            ds.reader.read_vector_raw(start, n, chan)
+            line[label] = {
+                "open_parse_ms": p50_s(lambda: parse(path),
+                                       FORMATS_PARSES) * 1e3,
+                "open_parse_unremembered_ms": p50_s(
+                    lambda: (hdf5_blocks._lookup3_of.cache_clear(),
+                             parse(path)), FORMATS_PARSES) * 1e3,
+                "read_mb_per_s": nbytes / p50_s(
+                    lambda: ds.reader.read_vector_raw(start, n, chan),
+                    FORMATS_READS) / 1e6,
+                "read_io_workers0_mb_per_s": nbytes / p50_s(
+                    lambda: RFDataset(where, io_workers=0).reader
+                    .read_vector_raw(start, n, chan), FORMATS_READS) / 1e6}
+        if entry["filters"].get("fletcher32"):
+            raw = x.astype(np.dtype([("r", "<i2"), ("i", "<i2")])).tobytes()
+            line["fletcher32_mb_per_s"] = len(raw) / p50_s(
+                lambda: hdf5_blocks.fletcher32(raw), FORMATS_READS) / 1e6
+        emit(line)
+    for k in ("sti_psd", "median", "stream_psd", "big_psd"):
+        check(from_files[k] > 0,
+              f"files_formats: kernel {k} was never launched")
+    emit({"phase": "files_formats", "card": card,
+          "fixtures": list(manifest["fixtures"]),
+          "h5py_that_wrote_them": manifest["h5py"],
+          "hdf5_that_wrote_them": manifest["hdf5"],
+          "launches": from_files})
+    return from_files
 
 
 def phase_b2_batched(dev, card, rng):
@@ -2228,14 +2486,19 @@ def phase_cli(dev, card, tmp, long_top, window_s: float = 30.0):
 
 
 def phase_gui(dev, card, ds_written, ds_live, tones, tmp,
-              window_s: float = 30.0):
+              window_s: float = 30.0, dirs=()):
     """The port's viewer on the headless widget kit: MainWindow on the
     card, its plots recorded (recording_figure_kit: the card's machine has
     no matplotlib), the directory dialog's answer mapped to in-memory
     captures. One written tab at the reference default, then one live tab
     at a ``window_s`` window (nfft 4096, hop 2048) for four refreshes:
     each frame reaches the window and is drawn, peaks at 0 dBFS, no
-    warning dialog. Returns the launch counts."""
+    warning dialog. Then, for each of ``dirs`` ((label, Digital RF
+    directory, MemoryDataset of its samples, its tones, live?)), a tab of
+    a second MainWindow with no ``open_dataset``, which opens the
+    directory itself, against the same tab over the memory twin in the
+    first window: the last frames bit for bit, Start -> first frame of
+    each. Returns the launch counts."""
     import numpy as np
     import torch
 
@@ -2257,8 +2520,9 @@ def phase_gui(dev, card, ds_written, ds_live, tones, tmp,
             time.sleep(0.01)
         return time.perf_counter() - t0
 
-    def run_tab(tab_id, label, source, n_frames, kernels, **widgets):
-        st = win.states[tab_id]
+    def run_tab(tab_id, label, source, n_frames, kernels, window=None,
+                tab_tones=tones, peak_db=0.0, **widgets):
+        st = (window or win).states[tab_id]
         for name, v in widgets.items():
             if name == "live_check":
                 st.live_check.setChecked(v)
@@ -2283,11 +2547,11 @@ def phase_gui(dev, card, ds_written, ds_live, tones, tmp,
         check(p.tile is not None and p.tile.dtype == np.uint8
               and p.mask.all(), f"gui {label}: payload tile/mask")
         peaks = []
-        for s, f in enumerate(tones):
+        for s, f in enumerate(tab_tones):
             med = p.sxx_med_dbfs[:, s]
             k = int(med.argmax())
             check(abs(p.freqs[k] - f) <= 2 * float(p.freqs[1] - p.freqs[0])
-                  and abs(med[k]) <= 0.1,
+                  and (peak_db is None or abs(med[k] - peak_db) <= 0.1),
                   f"gui {label}: sub {s} peak {med[k]} dBFS at "
                   f"{p.freqs[k]} Hz")
             peaks.append(float(med[k]))
@@ -2317,9 +2581,39 @@ def phase_gui(dev, card, ds_written, ds_live, tones, tmp,
                 ring_bytes=eng.state.ring.numel() * 4,
                 latency=win.states[2].processor.latency_stats())
     emit(line)
+    # tabs on Digital RF directories, each beside its memory twin
+    win_dir = gui.MainWindow(device=dev, figure_kit=gui.recording_figure_kit)
+    win_dir._last_dir_file = lambda: Path(tmp) / "last_dir_files.txt"
+    for j, (label, directory, mem, dir_tones, live) in enumerate(dirs):
+        sources[f"{label}_memory"] = mem
+        kw = (dict(live_check=True, window_s=window_s, nfft=4096,
+                   hop_w=2048) if live else {})
+        n_frames = 4 if live else 1
+        kernels = ("stream_psd", "median") if live else ("sti_psd", "median")
+        win.new_tab()
+        mem_tab = max(win.states)
+        mem_line = run_tab(mem_tab, f"{label}_memory", f"{label}_memory",
+                           n_frames, kernels, tab_tones=dir_tones,
+                           peak_db=None, **kw)
+        if j:
+            win_dir.new_tab()
+        dir_tab = max(win_dir.states)
+        line = run_tab(dir_tab, f"{label}_files", str(directory), n_frames,
+                       kernels, window=win_dir, tab_tones=dir_tones,
+                       peak_db=None, **kw)
+        got, want = win_dir.states[dir_tab].last, win.states[mem_tab].last
+        for f in ("tile", "sxx_med_dbfs", "freqs", "times", "mask"):
+            check(np.array_equal(getattr(got, f), getattr(want, f)),
+                  f"gui {label}: the frame from files differs from "
+                  f"memory's in {f}")
+        line.update(directory=directory.name, frames_bit_equal_memory=True,
+                    memory_first_frame_s=mem_line["first_frame_s"],
+                    memory_peaks_dbfs=mem_line["peaks_dbfs"])
+        emit(line)
     check(dialogs.QMessageBox.journal == [],
           f"gui: warnings {dialogs.QMessageBox.journal}")
-    check(win.close(), "gui: the window refused to close")
+    check(win.close() and win_dir.close(),
+          "gui: a window refused to close")
     return total
 
 
@@ -3411,13 +3705,20 @@ BENCH_ROW_KERNELS = {
 }
 
 
+#: GiB of capture the bench's --e2e rows stream, from memory and files
+E2E_GB = 0.25
+
+
 def phase_bench(dev, card, program_ms: float) -> dict:
     """The port's bench (pyspectrogram_tpu_torch.bench) on the card at the
     JAX bench's default shapes (nint 4, ntime 128, nsub 2): every row of
     run_all, each present with finite positive numbers and launches that
     show its kernels (BENCH_ROW_KERNELS), then main's headline line, whose
     p50_ms is printed beside phase 5's device_program_ms at the same shape
-    (no check between them). Returns the phase's launch counts."""
+    (no check between them); then main's --e2e line at E2E_GB GiB from
+    memory and with --e2e-cache (a Digital RF capture on disk), each rate
+    finite and positive, B1 and B2 launched. Returns the phase's launch
+    counts."""
     import contextlib
     import io
     import math
@@ -3458,6 +3759,38 @@ def phase_bench(dev, card, program_ms: float) -> dict:
     emit({"phase": "bench_headline", **head,
           "timing_headline_device_program_ms": program_ms,
           "rows": len(rows), "seconds": seconds, "launches": run})
+
+    # the capture -> device rate end to end (--e2e), from memory and from
+    # a Digital RF capture the bench writes into a temporary directory
+    # (--e2e-cache) and reads through the port's HDF5 layer
+    e2e = {}
+    with tempfile.TemporaryDirectory() as cache:
+        for source, extra in (("memory", []),
+                              ("digital_rf", ["--e2e-cache", cache])):
+            out = io.StringIO()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = bench.main(["--device", str(dev), "--e2e", "--e2e-gb",
+                                 str(E2E_GB), *extra])
+            torch.cuda.synchronize()
+            e2e_run = read_counts()
+            row = json.loads(out.getvalue().strip().splitlines()[-1])
+            check(rc == 0 and row["source"] == source
+                  and all(math.isfinite(row[k]) and row[k] > 0 for k in
+                          ("value", "host_ingest_samples_per_s")),
+                  f"bench e2e from {source}: {row}")
+            check(e2e_run["sti_psd"] > 0 and e2e_run["median"] > 0,
+                  f"bench e2e from {source}: launches {e2e_run}")
+            add_counts(run, e2e_run)
+            e2e[source] = {"e2e_samples_per_s": row["value"],
+                           "host_ingest_samples_per_s":
+                               row["host_ingest_samples_per_s"],
+                           "windows": row["windows"],
+                           "seconds": time.perf_counter() - t0,
+                           "launches": e2e_run}
+    emit({"phase": "bench_e2e", "card": card, "gb": E2E_GB,
+          "metric": row["metric"], **e2e})
     return run
 
 
@@ -3863,11 +4196,26 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         files_counts, long_top = phase_files(dev, card, tmp, live_ticks)
         add_counts(launches, files_counts)
+        formats_counts = phase_files_formats(dev, card, tmp)
+        add_counts(launches, formats_counts)
         cli_counts = phase_cli(dev, card, tmp, long_top)
         check(cli_counts["stream_psd"] > 0,
               "cli: B3 was never launched from the files")
         add_counts(launches, cli_counts)
-        add_counts(launches, phase_gui(dev, card, ds, ds_long, tones, tmp))
+        # the viewer's tabs on directories: a fixture in the latest format
+        # (written tab) and the files phase's grown capture (live tab)
+        x_files, ext = files_capture_samples(sr, tones)
+        manifest = json.loads((FORMATS_DIR / "manifest.json").read_text())
+        fx_mem, fx_dir, _ = fixture_dataset("latest_plain", manifest)
+        fx_sr = manifest["samples"]["sample_rate"]
+        dirs = [("fixture_latest_plain", fx_dir, fx_mem,
+                 [fx_sr / 16.0, fx_sr / 8.0], False),
+                ("capture", long_top,
+                 MemoryDataset(np.concatenate([x_files, ext]), sr,
+                               start=FILES_START * sr), tones, True)]
+        add_counts(launches, phase_gui(dev, card, ds, ds_long, tones, tmp,
+                                       dirs=dirs))
+        del x_files, ext, dirs
     del x_long, ds_long
     phase_filter(dev, card)
 
@@ -3893,13 +4241,16 @@ def main() -> int:
     # exists; no single call computes B1, B3 or B4 (window + FFT + |X|^2 +
     # Welch sum + fftshift), so theirs is null and fft_alone_ms times
     # torch.fft.fft over the same windowed frames for context;
-    # files_launches: those the files phase made reading from disk
+    # files_launches: those the files phase made reading from disk;
+    # formats_launches: those files_formats made from the fixtures
     emit({"kernels": [
         {"name": "sti_psd", "route": "cuda",
          "source": "pyspectrogram_tpu_torch/csrc/sti_psd.cu",
          "replaces": "pyspectrogram_tpu/kernels/sti_pallas.py:409",
          "launches": launches["sti_psd"],
-         "files_launches": files_counts["sti_psd"], "max_abs_err": b1_err,
+         "files_launches": files_counts["sti_psd"],
+         "formats_launches": formats_counts["sti_psd"],
+         "max_abs_err": b1_err,
          "ms": head["b1_ms"], "plain_ms": head["b1_plain_ms"],
          "device_ms": head["b1_device_ms"],
          "bound_ms": head["b1_bound"][0], "bound_by": head["b1_bound"][1],
@@ -3908,7 +4259,9 @@ def main() -> int:
          "source": "pyspectrogram_tpu_torch/csrc/median.cu",
          "replaces": "pyspectrogram_tpu/kernels/median_pallas.py:77",
          "launches": launches["median"],
-         "files_launches": files_counts["median"], "max_abs_err": 0.0,
+         "files_launches": files_counts["median"],
+         "formats_launches": formats_counts["median"],
+         "max_abs_err": 0.0,
          "ms": head["b2_ms"], "plain_ms": head["b2_plain_ms"],
          "device_ms": head["b2_device_ms"],
          "bound_ms": head["b2_bound"][0], "bound_by": head["b2_bound"][1],
@@ -3935,6 +4288,7 @@ def main() -> int:
          "replaces": "pyspectrogram_tpu/kernels/sti_pallas.py:767",
          "launches": launches["stream_psd"],
          "files_launches": files_counts["stream_psd"],
+         "formats_launches": formats_counts["stream_psd"],
          "max_abs_err": max(b3_err, b3["err"]),
          "ms": b3["ms"], "plain_ms": b3["plain_ms"],
          "device_ms": b3["device_ms"],
@@ -3944,7 +4298,9 @@ def main() -> int:
          "source": "pyspectrogram_tpu_torch/csrc/big_psd.cu",
          "replaces": "pyspectrogram_tpu/kernels/sti_pallas.py:970",
          "launches": launches["big_psd"],
-         "files_launches": files_counts["big_psd"], "max_abs_err": b4_err,
+         "files_launches": files_counts["big_psd"],
+         "formats_launches": formats_counts["big_psd"],
+         "max_abs_err": b4_err,
          "ms": b4[1 << 16][0], "plain_ms": b4[1 << 16][1],
          "device_ms": b4[1 << 16][4],
          "bound_ms": b4[1 << 16][3][0], "bound_by": b4[1 << 16][3][1],

@@ -6,35 +6,57 @@ an h5py-shaped subset, exactly the surface the io modules call, so each of
 them reaches it through one import line (``from ... import hdf5 as h5py``):
 
 * ``File(path, "r" | "w" | "a")`` as a context manager, ``name in f``,
-  ``f[name]``, ``f.attrs`` and ``f.create_dataset(name, shape=,
-  maxshape=, dtype=, chunks=, compression="gzip", compression_opts=)``;
-* ``Dataset`` ``.shape``, ``.maxshape``, ``.dtype``, ``.chunks``, the
-  filter properties, reads ``ds[a:b]``, ``ds[...]``, ``ds[-1]``,
-  ``ds[0, 0]``, row writes ``ds[row:] = rows`` / ``ds[-1] = row`` and
-  ``.resize(n, axis=0)``;
+  ``f[name]`` (a path through groups), ``f.keys()``, ``f.attrs`` and
+  ``f.create_dataset(name, shape=, maxshape=, dtype=, chunks=,
+  compression="gzip", compression_opts=)``; ``Group`` the same for reads;
+* ``Dataset`` ``.shape``, ``.maxshape``, ``.dtype``, ``.chunks``,
+  ``.attrs``, ``len()``, the filter properties, reads ``ds[a:b]``,
+  ``ds[...]``, ``ds[-1]``, ``ds[0, 0]``, row writes ``ds[row:] = rows`` /
+  ``ds[-1] = row`` and ``.resize(n, axis=0)``;
 * ``ds.id.get_offset()``, ``.get_num_chunks()`` and ``.get_chunk_info(k)``
-  (chunk offset, filter mask, byte offset, size), for io.fastread.
+  (chunk offset, filter mask, byte offset from the file's start, size),
+  for io.fastread.
 
-Dtypes map as h5py maps them: a float ``{r, i}`` compound reads as native
-complex, an integer compound stays structured, an HDF5 bool enum reads as
-bool; a complex dtype is written as the ``{r, i}`` compound.
+Dtypes map as h5py maps them: a float ``{r, i}`` compound reads as
+complex of its byte order, an integer compound stays structured, an HDF5
+bool enum reads as bool, a big-endian type stays big-endian (``>i2``,
+``>c8``: no bytes swapped), HDF5's x87 long double reads as
+``np.longdouble`` where the host's is the same; a complex dtype is
+written as the ``{r, i}`` compound.
 
-What it reads: everything HDF5 writes with its default ("earliest")
-format for a Digital RF capture. Superblock v0/v1 with 8-byte offsets and
-lengths; v1 object headers with continuation blocks; symbol-table groups
-(B-tree type 0, local heap, symbol nodes); v1 dataspaces incl.
-unlimited maximum dims; fixed-point, IEEE float (32 and 64 bit), fixed
-and variable-length strings (global heap), enums and compounds
-(datatype message v1-v3); v1 attributes; layout v3 (contiguous, and
-chunked with a type-1 B-tree of any depth); the deflate and shuffle
-filters. Attributes are decoded only when read, so one it cannot decode
-(upstream digital_rf's long double ``samples_per_second``) stops only
-its own read. Any other structure raises FormatError naming it
-("superblock version 3", "object header version 2", "layout version 4
-(fixed-array index)", "filter 3 (fletcher32)", "big-endian ..."): it
-never returns wrong bytes. A file without the HDF5
-signature raises OSError, as h5py does (a writer's file before its first
-flush looks like that).
+What it reads: every structure h5py 3.14 / HDF5 1.14 writes for a Digital
+RF channel under any ``libver`` (earliest, v108, v110, v112, v114,
+latest), returning what h5py returns:
+
+* superblocks v0-v3, found past a user block (at 512, 1024, ...), with
+  8-byte offsets and lengths; v2/v3's extension checked and its
+  messages (file-space info, driver info, B-tree K) left alone;
+* object headers v1 and v2 (``OHDR`` and ``OCHK`` continuation blocks);
+* groups with a symbol table (B-tree type 0, local heap, symbol nodes),
+  or link messages, compact or dense (a fractal heap through the v2
+  B-tree name index), in name or creation order as h5py lists them;
+* attribute messages v1-v3, compact or dense (attribute info, fractal
+  heap, v2 B-tree of names), decoded only when read;
+* dataspaces v1/v2, fill values v1-v3, filter pipelines v1/v2, datatypes
+  v1-v3 (fixed-point and IEEE floats of either byte order, fixed and
+  variable-length strings through the global heap, enums, compounds);
+* layout v3 and v4: compact, contiguous, and chunked with a v1 B-tree
+  (type 1) or any layout-4 index: single chunk, implicit, fixed array,
+  extensible array (paged data blocks included), v2 B-tree (record
+  types 10/11); a chunk never written reads as the fill value;
+* the deflate, shuffle and fletcher32 filters.
+
+Every checksummed block (io.hdf5_blocks: lookup3 on v2+ metadata,
+fletcher32 on chunks) is checked before any of its bytes are used; a
+mismatch raises OSError, as h5py does. What it does not read raises
+FormatError naming it, and it never returns wrong bytes: the filters no
+Digital RF writer applies (szip, nbit, scaleoffset, lzf), virtual and
+external storage, shared object header messages, huge or filtered
+fractal heap objects, layout-4 chunks left unfiltered at the edges. A
+file without the HDF5 signature raises OSError, as h5py does (a writer's
+file before its first flush looks like that); so does a version 3
+superblock whose flags say a writer has the file open, as h5py refuses
+it.
 
 What it writes: superblock v0, v1 object headers, a symbol-table root
 group, attributes (int, float, and fixed-length null-padded UTF-8
@@ -44,7 +66,11 @@ dataspace, datatype, fill-value, filter-pipeline and layout messages
 HDF5 needs to open them. Chunks are appended to the right of the chunk
 B-tree, which grows by new leaves and new roots (HDF5's nodes of 2K
 entries, K = 32); an existing chunk is rewritten in place (uncompressed)
-or moved (compressed, when it outgrows its space).
+or moved (compressed, when it outgrows its space). It writes only into
+what it would have written itself: opening a file of superblock v2/v3
+or with a user block for "a" raises FormatError, and so does a write
+into a version 2 header, a new-style group or a layout-4 dataset, each
+before a byte changes.
 
 Concurrency, as HDF5's own file locking: each File ``os.open``s its own
 descriptor and takes ``flock`` ``LOCK_SH | LOCK_NB`` for "r" and
@@ -72,6 +98,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from pyspectrogram_tpu_torch.io import hdf5_blocks as blocks
 from pyspectrogram_tpu_torch.utils.errors import FormatError
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
@@ -91,7 +118,8 @@ TYPE_CLASSES = {2: "time", 4: "bitfield", 5: "opaque", 7: "reference",
                 10: "array"}
 #: (precision, exponent location, exponent size, mantissa size, bias) of
 #: the IEEE floats read and written, by size in bytes
-IEEE = {4: (32, 23, 8, 23, 127), 8: (64, 52, 11, 52, 1023)}
+IEEE = {2: (16, 10, 5, 10, 15), 4: (32, 23, 8, 23, 127),
+        8: (64, 52, 11, 52, 1023)}
 
 ChunkInfo = namedtuple("ChunkInfo",
                        "chunk_offset filter_mask byte_offset size")
@@ -136,9 +164,25 @@ class _Type:
 _VLEN = np.dtype([("len", "<u4"), ("addr", "<u8"), ("idx", "<u4")])
 
 
-def _little(bits: int, what: str) -> None:
-    if bits & 1:
-        raise FormatError(f"big-endian {what} datatype")
+def _order(bits: int, what: str) -> str:
+    """numpy's byte-order character of a fixed-point or IEEE datatype."""
+    order = (bits & 1) | (bits >> 5 & 2)
+    if order > 1:
+        raise FormatError(f"{'VAX' if order == 3 else 'reserved'} byte order "
+                          f"of a {what} datatype")
+    return ">" if order else "<"
+
+
+#: the x87 extended precision that h5py writes for np.longdouble: (size,
+#: bit offset, precision, exponent location, exponent size, mantissa
+#: location, mantissa size, bias, sign location, mantissa normalisation)
+X87 = (16, 0, 80, 64, 15, 0, 64, 16383, 79, 0)
+
+
+def _host_x87() -> bool:
+    ld = np.finfo(np.longdouble)
+    return (np.dtype(np.longdouble).itemsize == 16 and ld.nmant == 63
+            and ld.nexp == 15 and np.little_endian)
 
 
 def _decode_type(b, p) -> Tuple[_Type, int]:
@@ -148,21 +192,25 @@ def _decode_type(b, p) -> Tuple[_Type, int]:
     size = _u32(b, p + 4)
     q = p + 8
     if cls == 0:                                        # fixed-point
-        _little(bits, "fixed-point")
+        bo = _order(bits & 1, "fixed-point")
         off, prec = struct.unpack_from("<HH", b, q)
         if off or prec != 8 * size or size not in (1, 2, 4, 8):
             raise FormatError(f"fixed-point of {prec} bits at bit {off} "
                               f"in {size} bytes")
-        return _Type(f"<{'i' if bits & 8 else 'u'}{size}"), q + 4
+        return _Type(f"{bo}{'i' if bits & 8 else 'u'}{size}"), q + 4
     if cls == 1:                                        # floating point
-        if bits & 0x41:
-            raise FormatError("big-endian floating-point datatype")
+        bo = _order(bits, "floating-point")
         off, prec, eloc, esize, mloc, msize, bias = struct.unpack_from(
             "<HHBBBBI", b, q)
         if IEEE.get(size) == (prec, eloc, esize, msize, bias) and not off:
-            return _Type(f"<f{size}"), q + 12
+            return _Type(f"{bo}f{size}"), q + 12
+        desc = (size, off, prec, eloc, esize, mloc, msize, bias,
+                bits >> 8 & 0xFF, bits >> 4 & 3)
+        if desc == X87 and bo == "<" and _host_x87():
+            return _Type(np.longdouble), q + 12
         raise FormatError(f"floating point of {size} bytes with {prec}-bit "
-                          f"precision")
+                          f"precision" + (" (this host's long double is not "
+                                          "x87)" if desc == X87 else ""))
     if cls == 3:                                        # fixed string
         return _Type(f"S{size}"), q
     if cls == 6:                                        # compound
@@ -194,7 +242,8 @@ def _decode_type(b, p) -> Tuple[_Type, int]:
         if (names == ["r", "i"] and f0.kind == "f" and formats[1] == f0
                 and f0.itemsize in (4, 8)
                 and offsets == [0, f0.itemsize] and size == 2 * f0.itemsize):
-            memory = np.dtype(f"<c{size}")
+            memory = np.dtype(f"{'>' if f0.byteorder == '>' else '<'}"
+                              f"c{size}")
         return _Type(storage, memory), q
     if cls == 8:                                        # enumeration
         base, q = _decode_type(b, q)
@@ -256,11 +305,17 @@ def _encode_type(dt: np.dtype) -> bytes:
 
 # ------------------------------------------------------------ dataspace
 def _decode_space(b, p):
-    """Dataspace message -> (shape, maxshape, position of the dims)."""
+    """Dataspace message (version 1 or 2) -> (shape, maxshape, position of
+    the dims); a scalar has shape ()."""
     ver, rank, flags = b[p], b[p + 1], b[p + 2]
-    if ver != 1:
+    if ver == 1:
+        q = p + 8
+    elif ver == 2:
+        if b[p + 3] == 2:
+            raise FormatError("null dataspace")
+        q = p + 4
+    else:
         raise FormatError(f"dataspace version {ver}")
-    q = p + 8
     shape = struct.unpack_from(f"<{rank}Q", b, q)
     maxshape = shape
     if flags & 1:
@@ -301,32 +356,36 @@ def guess_chunk(shape, typesize: int) -> Tuple[int, ...]:
 
 # ------------------------------------------------------------ headers
 class _Msg:
-    __slots__ = ("type", "flags", "addr", "size")
+    __slots__ = ("type", "flags", "addr", "size", "corder")
 
-    def __init__(self, mtype, flags, addr, size):
+    def __init__(self, mtype, flags, addr, size, corder=0):
         self.type, self.flags, self.addr, self.size = mtype, flags, addr, size
+        self.corder = corder
 
 
 class _Header:
-    """A v1 object header: its messages across its continuation blocks
-    (``addr`` is the address of a message's data)."""
+    """An object header, version 1 or 2 (``OHDR``, checksummed): its
+    messages across its continuation blocks (``addr`` is the address of a
+    message's data)."""
 
     def __init__(self, f: "File", addr: int):
         self.addr = addr
         head = f._read(addr, 512)
         if len(head) < 16:
             raise OSError(errno.EIO, f"truncated object header at {addr}")
+        self.msgs: List[_Msg] = []
+        self.data: Dict[int, bytes] = {}
         if head[:4] == b"OHDR":
-            raise FormatError("object header version 2")
+            self._read_v2(f, addr, head)
+            return
         if head[0] != 1:
             raise FormatError(f"object header version {head[0]}")
+        self.version = 1
         self.nmsgs = _u16(head, 2)
         size = _u32(head, 8)
         first = head[16:16 + size]
         if len(first) < size:
             first = f._read(addr + 16, size)
-        self.msgs: List[_Msg] = []
-        self.data: Dict[int, bytes] = {}
         todo = [(addr + 16, first)]
         while todo:
             base, blk = todo.pop(0)
@@ -341,6 +400,40 @@ class _Header:
                     todo.append((caddr, f._read(caddr, clen)))
                 p += 8 + msize
 
+    def _read_v2(self, f, addr, head) -> None:
+        if head[4] != 2:
+            raise FormatError(f"object header version {head[4]}")
+        self.version = 2
+        flags = head[5]
+        p = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+        nsz = 1 << (flags & 3)
+        size = int.from_bytes(head[p:p + nsz], "little")
+        p += nsz
+        hsize = 6 if flags & 4 else 4
+        need = p + size + 4
+        blk = blocks.checked(head[:need] if len(head) >= need
+                             else f._read(addr, need), "object header", addr)
+        todo = [(addr, blk, p)]
+        while todo:
+            base, blk, p = todo.pop(0)
+            end = len(blk) - 4
+            while p + hsize <= end:
+                mtype, msize, mflags = blk[p], _u16(blk, p + 1), blk[p + 3]
+                m = _Msg(mtype, mflags, base + p + hsize, msize,
+                         _u16(blk, p + 4) if hsize == 6 else 0)
+                self.msgs.append(m)
+                self.data[m.addr] = bytes(blk[p + hsize:p + hsize + msize])
+                if mtype == 0x10:
+                    caddr, clen = struct.unpack_from("<QQ", blk, p + hsize)
+                    c = f._read(caddr, clen)
+                    if c[:4] != b"OCHK":
+                        raise FormatError(f"object header continuation "
+                                          f"block at {caddr}")
+                    todo.append((caddr, blocks.checked(
+                        c, "object header continuation block", caddr), 4))
+                p += hsize + msize
+        self.nmsgs = len(self.msgs)
+
     def find(self, mtype: int) -> Optional[_Msg]:
         for m in self.msgs:
             if m.type == mtype:
@@ -349,51 +442,111 @@ class _Header:
                 return m
         return None
 
+    def all(self, mtype: int) -> List[bytes]:
+        """The data of every message of ``mtype``, in header order."""
+        out = []
+        for m in self.msgs:
+            if m.type == mtype:
+                if m.flags & 2:
+                    raise FormatError(f"shared message of type {mtype:#x}")
+                out.append(self.data[m.addr])
+        return out
 
-def _attr_name(data: bytes) -> str:
-    if data[0] != 1:
-        raise FormatError(f"attribute message version {data[0]}")
-    return data[8:8 + _u16(data, 2)].rstrip(b"\0").decode()
+
+def _parse_attr(data: bytes):
+    """An attribute message (version 1-3) -> (name, (type, shape, data
+    offset))."""
+    ver = data[0]
+    if ver not in (1, 2, 3):
+        raise FormatError(f"attribute message version {ver}")
+    if data[1] & 3:
+        raise FormatError("attribute with a shared datatype or dataspace")
+    nsize, tsize, ssize = struct.unpack_from("<HHH", data, 2)
+    if ver == 1:
+        p, pad = 8, _pad8
+    else:
+        p, pad = 8 + (ver == 3), (lambda n: n)
+    name = bytes(data[p:p + nsize]).rstrip(b"\0").decode()
+    p += pad(nsize)
+    t = p
+    p += pad(tsize)
+    sp = p
+    p += pad(ssize)
+    return name, (t, sp, p)
+
+
+def _attr_value(f: "File", b: bytes):
+    """An attribute message's value, as h5py hands it out."""
+    _, (tp, sp, p) = _parse_attr(b)
+    t, _ = _decode_type(b, tp)
+    shape, _, _ = _decode_space(b, sp)
+    n = math.prod(shape)
+    raw = np.frombuffer(b, t.storage, count=n, offset=p).reshape(shape)
+    if t.vlen_str:
+        out = np.array([f._vlen_str(r) for r in raw.reshape(-1)],
+                       object).reshape(shape)
+        return out[()] if not shape else out
+    out = raw.view(t.memory) if t.memory != t.storage else raw.copy()
+    return out[()] if not shape else out
 
 
 class AttributeManager:
-    """``obj.attrs``: read when indexed, written as v1 attribute messages."""
+    """``obj.attrs``: read when indexed (compact messages in the header, or
+    dense storage: a fractal heap indexed by a version 2 B-tree of names),
+    written as v1 attribute messages into a v1 header."""
 
     def __init__(self, f: "File", header: _Header):
         self._f, self._h = f, header
 
-    def _messages(self) -> Dict[str, _Msg]:
-        return {_attr_name(self._h.data[m.addr]): m for m in self._h.msgs
-                if m.type == 0x0C}
+    def _messages(self) -> Dict[str, bytes]:
+        """{name: attribute message}, in name order, or in creation order
+        where the object tracks it (as h5py iterates them)."""
+        h = self._h
+        found = []                             # (creation order, message)
+        for m in h.msgs:
+            if m.type == 0x0C:
+                if m.flags & 2:
+                    raise FormatError("shared attribute message")
+                found.append((m.corder, h.data[m.addr]))
+        info = h.find(0x15)
+        if info is not None:
+            b = h.data[info.addr]
+            if b[0] != 0:
+                raise FormatError(f"attribute info message version {b[0]}")
+            heap, names = struct.unpack_from("<QQ", b, 4 if b[1] & 1 else 2)
+            if heap != UNDEF:
+                fh = self._f._fractal_heap(heap)
+                found.extend((_u32(r, 9), fh.get(r[:8]))
+                             for r in self._f._btree2(names, 8))
+        tracked = info is not None and h.data[info.addr][1] & 1
+        named = sorted((_parse_attr(d)[0], c, d) for c, d in found)
+        if tracked:
+            named.sort(key=lambda x: x[1])
+        return {name: d for name, _, d in named}
 
     def __iter__(self):
         return iter(self._messages())
+
+    def __len__(self) -> int:
+        return len(self._messages())
+
+    def keys(self):
+        return list(self._messages())
 
     def __contains__(self, name) -> bool:
         return name in self._messages()
 
     def __getitem__(self, name):
-        m = self._messages().get(name)
-        if m is None:
+        b = self._messages().get(name)
+        if b is None:
             raise KeyError(f"no attribute {name!r}")
-        b = self._h.data[m.addr]
-        nsize, tsize, ssize = struct.unpack_from("<HHH", b, 2)
-        p = 8 + _pad8(nsize)
-        t, _ = _decode_type(b, p)
-        p += _pad8(tsize)
-        shape, _, _ = _decode_space(b, p)
-        p += _pad8(ssize)
-        n = math.prod(shape)
-        raw = np.frombuffer(b, t.storage, count=n, offset=p).reshape(shape)
-        if t.vlen_str:
-            out = np.array([self._f._vlen_str(r) for r in raw.reshape(-1)],
-                           object).reshape(shape)
-            return out[()] if not shape else out
-        out = raw.view(t.memory) if t.memory != t.storage else raw.copy()
-        return out[()] if not shape else out
+        return _attr_value(self._f, b)
 
     def __setitem__(self, name, value):
         self._f._writable()
+        if self._h.version != 1 or self._h.find(0x15) is not None:
+            raise FormatError(f"write of an attribute into a version "
+                              f"{self._h.version} object header")
         if isinstance(value, str):
             arr = np.array(value.encode())
         elif isinstance(value, bool):
@@ -412,9 +565,9 @@ class AttributeManager:
         body = (struct.pack("<BBHHH", 1, 0, len(name_b), len(t), len(s))
                 + _padded(name_b) + _padded(t) + _padded(s)
                 + np.ascontiguousarray(arr).tobytes())
-        old = self._messages().get(name)
-        if old is not None:
-            self._f._nil(self._h, old)
+        for m in self._h.msgs:
+            if m.type == 0x0C and _parse_attr(self._h.data[m.addr])[0] == name:
+                self._f._nil(self._h, m)
         self._f._add_message(self._h, 0x0C, body)
 
 
@@ -593,6 +746,49 @@ class _ChunkTree:
 
 
 # ------------------------------------------------------------ dataset
+class _ChunkList:
+    """A layout-4 chunk index (single chunk, implicit, fixed array,
+    extensible array or version 2 B-tree), read whole into the form of
+    _ChunkTree's leaves: ``entries`` [((stored size, filter mask, element
+    offsets + (0,)), address)] in offset order, ``firsts`` their offsets.
+    Chunks never written (an undefined address) are left out: they read
+    as the fill value."""
+
+    def __init__(self, ds: "Dataset"):
+        f, kind, rank = ds._f, ds._index, len(ds.shape)
+        cb = math.prod(ds.chunks) * ds._elem_size
+        geom = blocks.ChunkGeometry(ds.chunks, ds.shape, ds.maxshape, cb,
+                                    bool(ds._filters))
+        addr = ds._index_addr
+        found = []                      # (scaled offsets, address, size, mask)
+        if addr == UNDEF:
+            pass
+        elif kind == "single-chunk":
+            size, mask = ds._single or (cb, 0)
+            found.append(((0,) * rank, addr, size, mask))
+        elif kind == "implicit":
+            maxgrid = geom.grid(ds.maxshape)
+            for scaled in np.ndindex(*geom.grid(ds.shape)):
+                i = int(np.ravel_multi_index(scaled, maxgrid))
+                found.append((scaled, addr + i * cb, cb, 0))
+        elif kind == "version 2 B-tree":
+            found = blocks.btree2_chunks(f, addr, geom)
+        else:
+            if kind == "fixed-array":
+                items = blocks.fixed_array(f, addr, geom)
+                convert = blocks.linear_index(geom)
+            else:
+                items = blocks.extensible_array(f, addr, geom)
+                convert = blocks.linear_index(geom, ds.maxshape.index(None))
+            found = [(convert(i), a, size, mask) for i, a, size, mask in items
+                     if a != UNDEF]
+        self.entries = sorted(
+            (((size, mask, tuple(int(o) * c for o, c in zip(scaled, ds.chunks))
+               + (0,)), a) for scaled, a, size, mask in found if a != UNDEF),
+            key=lambda e: e[0][2])
+        self.firsts = [k[2] for k, _ in self.entries]
+
+
 class _DatasetID:
     """``ds.id``: the storage queries io.fastread makes."""
 
@@ -603,7 +799,7 @@ class _DatasetID:
         ds = self._ds
         if ds._layout != "contiguous" or ds._addr == UNDEF:
             return None
-        return ds._addr
+        return ds._addr + ds._f._base
 
     def get_num_chunks(self) -> int:
         return len(self._ds._tree().entries) if self._ds.chunks else 0
@@ -611,21 +807,25 @@ class _DatasetID:
     def get_chunk_info(self, k: int) -> ChunkInfo:
         key, addr = self._ds._tree().entries[k]
         rank = len(self._ds.shape)
-        return ChunkInfo(tuple(key[2][:rank]), key[1], addr, key[0])
+        return ChunkInfo(tuple(key[2][:rank]), key[1],
+                         addr + self._ds._f._base, key[0])
 
 
 class Dataset:
     """One dataset of a File, parsed when opened; chunks read on demand."""
 
-    def __init__(self, f: "File", name: str, addr: int):
+    def __init__(self, f: "File", name: str, addr: int,
+                 header: Optional[_Header] = None):
         self._f, self.name = f, name
-        h = self._h = _Header(f, addr)
+        h = self._h = header or _Header(f, addr)
         m = h.find(0x01)
         t = h.find(0x03)
         lay = h.find(0x08)
         if m is None or t is None or lay is None:
             raise FormatError(f"dataset {name!r} without dataspace, datatype "
                               f"or layout message")
+        if h.find(0x07) is not None:
+            raise FormatError(f"external storage of dataset {name!r}")
         self.shape, self.maxshape, dpos = _decode_space(h.data[m.addr], 0)
         self._dims_pos = m.addr + dpos
         self._dims_dirty = False
@@ -644,13 +844,25 @@ class Dataset:
         if pm is not None:
             self._filters = self._pipeline(h.data[pm.addr])
         self._parse_layout(h.data[lay.addr], lay.addr)
-        self._chunk_tree: Optional[_ChunkTree] = None
+        self._chunk_tree = None
         self.id = _DatasetID(self)
+
+    @property
+    def attrs(self) -> AttributeManager:
+        return AttributeManager(self._f, self._h)
+
+    def __len__(self) -> int:
+        return self.shape[0]
 
     # ---- messages
     def _fill_value(self, b) -> Optional[bytes]:
-        """The fill value's bytes (version 1/2 message), None for the
+        """The fill value's bytes (version 1-3 message), None for the
         default (zeros)."""
+        if b[0] == 3:
+            if not b[1] & 0x20:
+                return None
+            size = _u32(b, 2)
+            return bytes(b[6:6 + size]) if size else None
         if b[0] not in (1, 2):
             raise FormatError(f"fill value message version {b[0]}")
         if b[0] == 2 and not b[3]:
@@ -659,42 +871,77 @@ class Dataset:
         return bytes(b[8:8 + size]) if size else None
 
     def _pipeline(self, b):
-        """[(filter id, client values)] of a version 1 pipeline message."""
-        if b[0] != 1:
-            raise FormatError(f"filter pipeline version {b[0]}")
-        p, out = 8, []
+        """[(filter id, client values)] of a version 1 or 2 pipeline
+        message (version 2 names only filters numbered 256 and up, and
+        pads nothing)."""
+        ver = b[0]
+        if ver not in (1, 2):
+            raise FormatError(f"filter pipeline version {ver}")
+        p, out = (8 if ver == 1 else 2), []
         for _ in range(b[1]):
-            fid, nlen, _flags, nvals = struct.unpack_from("<HHHH", b, p)
-            p += 8 + _pad8(nlen)
+            fid = _u16(b, p)
+            named = ver == 1 or fid >= 256
+            nlen = _u16(b, p + 2) if named else 0
+            p += 4 if named else 2
+            _flags, nvals = struct.unpack_from("<HH", b, p)
+            p += 4 + (_pad8(nlen) if ver == 1 else nlen)
             out.append((fid, struct.unpack_from(f"<{nvals}I", b, p)))
-            p += 4 * (nvals + nvals % 2)
+            p += 4 * (nvals + (nvals % 2 if ver == 1 else 0))
         return out
 
     def _parse_layout(self, b, addr):
-        """Layout message version 3: contiguous or chunked (B-tree)."""
-        if b[0] != 3:
-            if b[0] == 4 and b[1] == 2:
-                kind = CHUNK_INDEXES.get(b[5 + b[3] * b[4]], "unknown")
-                raise FormatError(f"layout version 4 ({kind} index)")
-            raise FormatError(f"layout version {b[0]}")
+        """Layout message version 3 or 4: compact, contiguous, or chunked
+        (version 3: a type-1 B-tree; version 4: any of its five chunk
+        indexes)."""
+        ver, cls = b[0], b[1]
+        if ver not in (3, 4):
+            raise FormatError(f"layout version {ver}")
+        self._layout_version = ver
         self.chunks = None
         self._btree = UNDEF
-        if b[1] == 1:
+        self._index = None
+        if cls == 0:
+            self._layout = "compact"
+            self._compact = bytes(b[4:4 + _u16(b, 2)])
+        elif cls == 1:
             self._layout = "contiguous"
             self._addr = _u64(b, 2)
-        elif b[1] == 2:
+        elif cls == 2:
             self._layout = "chunked"
-            self._btree = _u64(b, 3)
-            self._layout_addr_pos = addr + 3
-            dims = struct.unpack_from(f"<{b[2]}I", b, 11)
+            if ver == 3:
+                self._index = "btree1"
+                self._btree = _u64(b, 3)
+                self._layout_addr_pos = addr + 3
+                dims = struct.unpack_from(f"<{b[2]}I", b, 11)
+            else:
+                flags, ndims, dsize = b[2], b[3], b[4]
+                if flags & 1:
+                    raise FormatError("layout version 4 with unfiltered "
+                                      "partial edge chunks")
+                dims = [int.from_bytes(b[5 + i * dsize:5 + (i + 1) * dsize],
+                                       "little") for i in range(ndims)]
+                p = 5 + ndims * dsize
+                itype = b[p]
+                self._index = CHUNK_INDEXES.get(itype)
+                if self._index is None:
+                    raise FormatError(f"layout version 4 (chunk index type "
+                                      f"{itype})")
+                p += 1
+                self._single = None
+                if itype == 1 and flags & 2:
+                    self._single = struct.unpack_from("<QI", b, p)
+                    p += 12
+                p += {1: 0, 2: 0, 3: 1, 4: 5, 5: 6}[itype]
+                self._index_addr = _u64(b, p)
             self.chunks = tuple(int(d) for d in dims[:-1])
             self._elem_size = int(dims[-1])
             if len(self.chunks) != len(self.shape):
                 raise FormatError(f"chunk rank {len(self.chunks)} of a rank "
                                   f"{len(self.shape)} dataset")
+        elif cls == 3:
+            raise FormatError(f"virtual storage of dataset {self.name!r}")
         else:
-            raise FormatError(f"layout class {b[1]} "
-                              f"({'compact' if b[1] == 0 else 'unknown'})")
+            raise FormatError(f"layout class {cls}")
 
     # ---- h5py's filter properties
     def _filter_ids(self):
@@ -732,9 +979,10 @@ class Dataset:
         return None
 
     # ---- reads
-    def _tree(self) -> _ChunkTree:
+    def _tree(self):
         if self._chunk_tree is None:
-            self._chunk_tree = _ChunkTree(self)
+            self._chunk_tree = (_ChunkTree(self) if self._index == "btree1"
+                                else _ChunkList(self))
         return self._chunk_tree
 
     @staticmethod
@@ -753,6 +1001,8 @@ class Dataset:
             fid, vals = self._filters[i]
             if fid == 1:
                 raw = zlib.decompress(raw)
+            elif fid == 3:
+                raw = blocks.strip_fletcher32(raw, repr(self.name))
             elif fid == 2:
                 size = vals[0] if vals else self._type.storage.itemsize
                 n = len(raw) // size
@@ -788,6 +1038,9 @@ class Dataset:
         row = st.itemsize * math.prod(self.shape[1:])
         if n == 0:
             return self._empty(0)
+        if self._layout == "compact":
+            raw = self._compact[a * row:b * row]
+            return np.frombuffer(raw, st).reshape((n,) + self.shape[1:]).copy()
         if self._layout == "contiguous":
             if self._addr == UNDEF:
                 return self._empty(n)
@@ -862,8 +1115,16 @@ class Dataset:
         return row[rest] if rest else row
 
     # ---- writes
-    def resize(self, size, axis: int = 0) -> None:
+    def _writable(self) -> None:
         self._f._writable()
+        if self._h.version != 1 or self._layout_version != 3:
+            raise FormatError(f"write to {self.name!r}: a version "
+                              f"{self._h.version} object header with layout "
+                              f"version {self._layout_version}, which the "
+                              f"port does not write")
+
+    def resize(self, size, axis: int = 0) -> None:
+        self._writable()
         if axis != 0:
             raise TypeError("only the first axis grows")
         size = int(size)
@@ -874,7 +1135,7 @@ class Dataset:
         self._dims_dirty = True
 
     def __setitem__(self, key, value):
-        self._f._writable()
+        self._writable()
         if not isinstance(key, tuple):
             key = (key,)
         n = self.shape[0] if self.shape else 0
@@ -971,6 +1232,92 @@ class Dataset:
             self._dims_dirty = False
 
 
+# ------------------------------------------------------------ groups
+LINK_KINDS = {1: "soft link", 64: "external link"}
+
+
+def _parse_link(b) -> Tuple[int, str, object]:
+    """A link message -> (creation order, name, header address or the
+    kind of a link that is not a hard one)."""
+    if b[0] != 1:
+        raise FormatError(f"link message version {b[0]}")
+    flags, p = b[1], 2
+    kind = 0
+    if flags & 8:
+        kind, p = b[p], p + 1
+    corder = 0
+    if flags & 4:
+        corder, p = _u64(b, p), p + 8
+    if flags & 0x10:
+        p += 1                                          # character set
+    nsz = 1 << (flags & 3)
+    n = int.from_bytes(b[p:p + nsz], "little")
+    p += nsz
+    name = bytes(b[p:p + n]).decode()
+    target = _u64(b, p + n) if kind == 0 else \
+        LINK_KINDS.get(kind, f"link of type {kind}")
+    return corder, name, target
+
+
+class Group:
+    """A group of a File: its members by path (``g["a/b"]``), names and
+    attributes. Reads every kind of group HDF5 writes."""
+
+    def __init__(self, f: "File", name: str, header: _Header):
+        self._f, self.name, self._h = f, name, header
+        self._members: Optional[Dict[str, object]] = None
+
+    @property
+    def attrs(self) -> AttributeManager:
+        return AttributeManager(self._f, self._h)
+
+    def _links(self) -> Dict[str, object]:
+        if self._members is None:
+            self._members = self._f._links(self._h)
+        return self._members
+
+    def keys(self):
+        return list(self._links())
+
+    def __iter__(self):
+        return iter(self._links())
+
+    def __len__(self) -> int:
+        return len(self._links())
+
+    def __contains__(self, name) -> bool:
+        try:
+            self[name]
+        except KeyError:
+            return False
+        return True
+
+    def __getitem__(self, name):
+        obj = self
+        for part in name.strip("/").split("/"):
+            if not isinstance(obj, Group):
+                raise KeyError(f"{obj.name!r} is not a group")
+            obj = obj._child(part)
+        return obj
+
+    def _child(self, name: str):
+        path = f"{self.name}/{name}".strip("/")
+        f = self._f
+        ds = f._datasets.get(path)
+        if ds is not None:
+            return ds
+        target = self._links().get(name)
+        if target is None:
+            raise KeyError(f"no object {path!r} in {f.filename}")
+        if isinstance(target, str):
+            raise FormatError(f"{target} {path!r}")
+        h = _Header(f, target)
+        if h.find(0x08) is None:
+            return Group(f, path, h)
+        ds = f._datasets[path] = Dataset(f, path, target, h)
+        return ds
+
+
 # ------------------------------------------------------------ file
 class File:
     """An HDF5 file opened "r" (shared lock), "w" (created or truncated)
@@ -985,8 +1332,10 @@ class File:
         self._fd = os.open(self.filename, flags, 0o666)
         self._datasets: Dict[str, Dataset] = {}
         self._gcols: Dict[int, Dict[int, bytes]] = {}
-        self._members: Optional[Dict[str, int]] = None
+        self._heaps: Dict[int, blocks.FractalHeap] = {}
         self._root: Optional[_Header] = None
+        self._root_grp: Optional[Group] = None
+        self._base, self._sb_version = 0, 0
         try:
             self._lock()
             if mode == "w":
@@ -1016,7 +1365,7 @@ class File:
                 time.sleep(0.001)
 
     def _read(self, addr: int, n: int) -> bytes:
-        return os.pread(self._fd, n, addr)
+        return os.pread(self._fd, n, self._base + addr)
 
     def _write(self, addr: int, data: bytes) -> None:
         mv = memoryview(data)
@@ -1050,24 +1399,52 @@ class File:
 
     # ---- superblock
     def _open_superblock(self) -> None:
-        head = os.pread(self._fd, 128, 0)
-        if head[:8] != SIGNATURE:
-            raise OSError(errno.EINVAL, "not an HDF5 file (no signature at "
-                          "its start)", self.filename)
-        ver = head[8]
+        """Find the superblock where HDF5 looks (byte 0, then 512, 1024,
+        ... past a user block) and read it: version 0/1, or version 2/3
+        (checksummed, with its extension's header checked)."""
+        pos, head = 0, os.pread(self._fd, 128, 0)
+        while head[:8] != SIGNATURE:
+            pos = 512 if pos == 0 else 2 * pos
+            if pos >= self._size:
+                raise OSError(errno.EINVAL, "not an HDF5 file (no signature "
+                              "at byte 0, 512, 1024, ...)", self.filename)
+            head = os.pread(self._fd, 128, pos)
+        # HDF5 takes the signature's place as the base address
+        self._base = pos
+        ver = self._sb_version = head[8]
+        if ver in (2, 3):
+            if head[9] != 8 or head[10] != 8:
+                raise FormatError(f"superblock with {head[9]}-byte offsets "
+                                  f"and {head[10]}-byte lengths")
+            blocks.checked(head[:48], f"superblock version {ver}", pos)
+            if self.mode != "r":
+                raise FormatError(f"write into a file with superblock "
+                                  f"version {ver} (the port writes version 0)")
+            if ver == 3 and head[11] & 0x05:
+                raise OSError(errno.EAGAIN, "file is already open for write "
+                              "(its superblock's flags say so)", self.filename)
+            ext, _, self._root_addr = struct.unpack_from("<QQQ", head, 20)
+            self._leaf_k, self._group_k = LEAF_K, GROUP_K
+            self._chunk_k = CHUNK_K
+            if ext != UNDEF:
+                # file-space, driver and B-tree K messages: none bears on
+                # a read, but the header's checksums are checked
+                _Header(self, ext)
+            return
         if ver not in (0, 1):
             raise FormatError(f"superblock version {ver}")
         if head[13] != 8 or head[14] != 8:
             raise FormatError(f"superblock with {head[13]}-byte offsets and "
                               f"{head[14]}-byte lengths")
+        if pos and self.mode != "r":
+            raise FormatError(f"write into a file with a {pos}-byte user "
+                              f"block")
         self._leaf_k, self._group_k = _u16(head, 16), _u16(head, 18)
         p = 24
         self._chunk_k = CHUNK_K
         if ver == 1:
             self._chunk_k = _u16(head, 24)
             p = 28
-        if _u64(head, p):
-            raise FormatError(f"base address {_u64(head, p)} (a user block)")
         self._eof_pos = p + 16
         self._stored_eof = self._eof = _u64(head, p + 16)
         self._root_addr = _u64(head, p + 32 + 8)
@@ -1104,21 +1481,35 @@ class File:
     def _group_node_bytes(self) -> int:
         return 24 + (2 * self._group_k + 1) * 8 + 2 * self._group_k * 8
 
-    # ---- root group
+    # ---- groups
     def _root_header(self) -> _Header:
         if self._root is None:
             self._root = _Header(self, self._root_addr)
         return self._root
 
+    def _root_group(self) -> "Group":
+        if self._root_grp is None:
+            self._root_grp = Group(self, "", self._root_header())
+        return self._root_grp
+
     def _group(self):
-        """(members {name: header address}, symbol-table message data)."""
+        """The root's symbol-table message data (the group the port
+        writes links into)."""
         h = self._root_header()
         st = h.find(0x11)
         if st is None:
-            if h.find(0x06) is not None or h.find(0x02) is not None:
-                raise FormatError("group of link messages (new-style group)")
-            raise FormatError("root group without a symbol table")
+            raise FormatError("write into a group of link messages "
+                              "(new-style group)")
         return h.data[st.addr]
+
+    def _fractal_heap(self, addr: int) -> blocks.FractalHeap:
+        fh = self._heaps.get(addr)
+        if fh is None:
+            fh = self._heaps[addr] = blocks.FractalHeap(self, addr)
+        return fh
+
+    def _btree2(self, addr: int, rtype: int) -> List[bytes]:
+        return blocks.btree2_records(self, addr, rtype)
 
     def _heap(self, heap_addr: int):
         h = self._read(heap_addr, 32)
@@ -1149,18 +1540,43 @@ class File:
         b = self._read(snod + 8, 40 * n)
         return [struct.unpack_from("<QQ", b, 40 * i) for i in range(n)]
 
-    def _load_members(self) -> Dict[str, int]:
-        if self._members is None:
-            bt, heap = struct.unpack_from("<QQ", self._group(), 0)
+    def _links(self, h: _Header) -> Dict[str, object]:
+        """A group's links {name: header address, or the kind of a link
+        that is not a hard one}: its symbol table, or its link messages
+        (compact) and fractal heap (dense, through the creation-order
+        index where the group keeps one, else the name index), in name
+        order, or in creation order where the group tracks it."""
+        st = h.find(0x11)
+        if st is not None:
+            bt, heap = struct.unpack_from("<QQ", h.data[st.addr], 0)
             _, _, _, hdata = self._heap(heap)
             nodes: List[int] = []
             self._group_nodes(bt, nodes)
-            members = {}
-            for snod in nodes:
-                for off, addr in self._symbols(snod):
-                    members[hdata[off:hdata.index(b"\0", off)].decode()] = addr
-            self._members = members
-        return self._members
+            return {hdata[off:hdata.index(b"\0", off)].decode(): addr
+                    for snod in nodes for off, addr in self._symbols(snod)}
+        links = [_parse_link(d) for d in h.all(0x06)]
+        tracked = False
+        li = h.find(0x02)
+        if li is not None:
+            b = h.data[li.addr]
+            if b[0] != 0:
+                raise FormatError(f"link info message version {b[0]}")
+            tracked = bool(b[1] & 1)
+            p = 10 if tracked else 2
+            heap, names = struct.unpack_from("<QQ", b, p)
+            if heap != UNDEF:
+                fh = self._fractal_heap(heap)
+                if b[1] & 2 and _u64(b, p + 16) != UNDEF:
+                    # the creation-order index (record type 6)
+                    links += [_parse_link(fh.get(r[8:15]))
+                              for r in self._btree2(_u64(b, p + 16), 6)]
+                else:
+                    # the name index (record type 5)
+                    links += [_parse_link(fh.get(r[4:11]))
+                              for r in self._btree2(names, 5)]
+        links.sort(key=(lambda x: x[0]) if tracked else
+                   (lambda x: x[1].encode()))
+        return {name: target for _, name, target in links}
 
     def _vlen_str(self, ref) -> str:
         n, addr, idx = int(ref["len"]), int(ref["addr"]), int(ref["idx"])
@@ -1188,23 +1604,26 @@ class File:
         return AttributeManager(self, self._root_header())
 
     def __contains__(self, name) -> bool:
-        return name.strip("/") in self._load_members()
+        return name in self._root_group()
 
-    def __getitem__(self, name) -> Dataset:
-        name = name.strip("/")
-        ds = self._datasets.get(name)
-        if ds is None:
-            addr = self._load_members().get(name)
-            if addr is None:
-                raise KeyError(f"no object {name!r} in {self.filename}")
-            ds = self._datasets[name] = Dataset(self, name, addr)
-        return ds
+    def __getitem__(self, name):
+        return self._root_group()[name]
+
+    def __iter__(self):
+        return iter(self._root_group())
+
+    def __len__(self) -> int:
+        return len(self._root_group())
+
+    def keys(self):
+        return self._root_group().keys()
 
     def create_dataset(self, name, shape=None, maxshape=None, dtype=None,
                        chunks=None, compression=None, compression_opts=None):
         """A chunked dataset (h5py's chunk guess when ``chunks`` is None),
         optionally gzip-compressed, linked into the root group."""
         self._writable()
+        self._group()                # a group the port writes links into
         name = name.strip("/")
         if "/" in name or name in self:
             raise ValueError(f"cannot create {name!r}")
@@ -1278,8 +1697,8 @@ class File:
         self._extend()
         self._write(bt + 6, struct.pack("<HQQ", 1, UNDEF, UNDEF)
                     + struct.pack("<QQQ", 0, snod, entries[-1][0]))
-        if self._members is not None:
-            self._members[name] = addr
+        if self._root_grp is not None:
+            self._root_grp._members = None
 
     def _heap_insert(self, heap_addr: int, data: bytes) -> int:
         """Place ``data`` in a free block of the local heap (the root of a

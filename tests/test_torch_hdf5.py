@@ -15,10 +15,15 @@ blocked in ``sys.modules`` (``no_h5py``), so the port cannot reach it.
     writer's twin;
 (c) upstream-shaped captures (tests/upstream_capture.py: contiguous
     layout, uint64 / longdouble / bool attributes, multi-run index, gapped
-    int16) read through the port equal to the JAX reader;
+    int16) read through the port equal to the JAX reader, every attribute
+    (the long double rate too) as h5py reads it;
 (d) the port's streaming processor chases a capture a writer thread grows;
 (e) files h5py writes with libver="latest", with shuffle + fletcher32 or
-    big-endian raise FormatError naming the structure; shuffle alone reads;
+    big-endian read as the JAX reader reads them (once refused); the
+    filters no Digital RF writer applies (szip, nbit, scaleoffset, lzf)
+    and a port write into a file of a format it does not write raise
+    FormatError naming the structure, the file's bytes untouched; shuffle
+    alone reads;
 (f) in a fresh interpreter where h5py cannot be imported, write_capture ->
     RFDataset -> StiPipeline(device="cpu").compute() matches the JAX
     package's request on the same capture.
@@ -259,9 +264,8 @@ UPSTREAM = {"complex64_rational_rate": _upstream_complex,
 @pytest.mark.parametrize("case", list(UPSTREAM))
 def test_upstream_captures_read_as_the_jax_reader_reads(tmp_path, case):
     """(c) Upstream-shaped captures: the port's reads equal the JAX
-    reader's, on both read paths; the uint64 cadences, bool flags and
-    strings read as h5py reads them, and the long double rate, which the
-    reader does not use, raises FormatError on its own read only."""
+    reader's, on both read paths; the uint64 cadences, bool flags,
+    strings and the long double rate read as h5py reads them."""
     UPSTREAM[case](tmp_path)
     want = _reads(jreader.RFDataset(tmp_path))
     _same(_port_reads(tmp_path), want)
@@ -271,10 +275,8 @@ def test_upstream_captures_read_as_the_jax_reader_reads(tmp_path, case):
         want_attrs = {k: _text(v) for k, v in g.attrs.items()}
     with no_h5py(), hdf5.File(props) as f:
         assert sorted(f.attrs) == sorted(want_attrs)
-        with pytest.raises(FormatError, match="floating point of 16 bytes"):
-            f.attrs["samples_per_second"]
-        got = {k: _text(f.attrs[k]) for k in f.attrs
-               if k != "samples_per_second"}
+        got = {k: _text(f.attrs[k]) for k in f.attrs}
+    assert type(got["samples_per_second"]) is np.longdouble
     for k, v in got.items():
         assert type(v) is type(want_attrs[k]) and v == want_attrs[k], k
 
@@ -345,23 +347,89 @@ def _rewrite(path, **kw):
 
 
 REFUSED = {
-    "libver_latest": (dict(file=dict(libver="latest")),
-                      "superblock version 3"),
+    # refused until the HDF5 layer read them; now read as the JAX reader
+    "libver_latest": (dict(file=dict(libver="latest")), None),
     "shuffle_fletcher32": (dict(data=dict(shuffle=True, fletcher32=True)),
-                           r"filter 3 \(fletcher32\)"),
-    "big_endian": (dict(dtype=np.dtype(">c8")),
-                   "big-endian floating-point datatype"),
+                           None),
+    "big_endian": (dict(dtype=np.dtype(">c8")), None),
+    # still refused: filters no Digital RF writer applies ...
+    "lzf": (dict(data=dict(compression="lzf")), r"filter 32000 \(lzf\)"),
+    "szip": ("szip", r"filter 4 \(szip\)"),
+    "nbit": ("nbit", r"filter 5 \(nbit\)"),
+    "scaleoffset": ("scaleoffset", r"filter 6 \(scaleoffset\)"),
+    # ... and a write into a file the port would not have written
+    "port_write_latest": ("write", "write into a file with superblock "
+                                   "version 3"),
+    "port_write_v2_header": ("write_v2_header", "version 2 object header"),
 }
+
+
+def _filtered_file(path, kind) -> None:
+    """An int16 dataset through one filter no Digital RF writer applies."""
+    x = np.arange(4000, dtype=np.int16)
+    with h5py.File(path, "w") as f:
+        if kind == "nbit":
+            dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+            dcpl.set_chunk((500,))
+            dcpl.set_filter(h5py.h5z.FILTER_NBIT, 0, ())
+            f.create_dataset("x", data=x, dcpl=dcpl)
+        elif kind == "szip":
+            f.create_dataset("x", data=x, chunks=(500,), compression="szip")
+        else:
+            f.create_dataset("x", data=x, chunks=(500,), scaleoffset=0)
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_unsupported_files_raise_format_error(tmp_path, case):
     """(e) A structure io.hdf5 does not read raises FormatError naming it,
-    through io.hdf5 itself and through the port's reader on both paths."""
+    through io.hdf5 itself and, for a capture, through the port's reader
+    on both paths; a write the port does not make raises before it
+    changes a byte. The three structures once refused here (libver
+    "latest", fletcher32, big-endian samples) now read as the JAX reader
+    reads them."""
     kw, match = REFUSED[case]
     jsynthetic.write_capture(tmp_path, n_samples=40_000)
     last = sorted(tmp_path.glob("ch0/*/rf@*.h5"))[-1]
+    if kw in ("szip", "nbit", "scaleoffset"):
+        path = tmp_path / "f.h5"
+        _filtered_file(path, kw)
+        with h5py.File(path) as g:
+            np.testing.assert_array_equal(g["x"][...], np.arange(4000))
+        with no_h5py(), pytest.raises(FormatError, match=match):
+            with hdf5.File(path) as f:
+                f["x"][...]
+        return
+    if kw in ("write", "write_v2_header"):
+        if kw == "write":
+            _rewrite(last, file=dict(libver="latest"))
+        else:
+            # superblock 0 with a version 2 root header and new-style root
+            # group: h5py makes them for creation-order tracking
+            with h5py.File(last, "w", track_order=True) as f:
+                f.create_dataset("rf_data", data=np.zeros((4, 1), "<c8"),
+                                 maxshape=(None, 1), chunks=(4, 1))
+                f.attrs["a"] = 1
+        before = last.read_bytes()
+        assert before[8] == (3 if kw == "write" else 0)
+        with no_h5py():
+            if kw == "write":
+                with pytest.raises(FormatError, match=match):
+                    hdf5.File(last, "a")
+            else:
+                with hdf5.File(last, "a") as f:
+                    with pytest.raises(FormatError, match=match):
+                        f.attrs["b"] = 2
+                    with pytest.raises(FormatError, match="new-style group"):
+                        f.create_dataset("more", shape=(0, 1),
+                                         maxshape=(None, 1), dtype="<c8")
+        assert last.read_bytes() == before
+        return
     _rewrite(last, **kw)
+    if match is None:
+        want = _reads(jreader.RFDataset(tmp_path))
+        _same(_port_reads(tmp_path), want)
+        _same(_port_reads(tmp_path, io_workers=0), want)
+        return
     with no_h5py():
         with pytest.raises(FormatError, match=match):
             with hdf5.File(last) as f:
@@ -392,23 +460,20 @@ def test_shuffle_alone_reads(tmp_path):
 # ------------------------------------------------------------ the module
 def test_attributes_cross_h5py(tmp_path):
     """Attributes h5py writes (every fixed-point width, both floats, bool,
-    fixed and variable-length strings, arrays) read through io.hdf5 as
-    h5py reads them, a long double raises FormatError; what io.hdf5
-    writes reads in h5py."""
+    fixed and variable-length strings, arrays, a long double) read through
+    io.hdf5 as h5py reads them; what io.hdf5 writes reads in h5py."""
     values = {f"{k}{n}": np.array(7, f"{k}{n}")[()]
               for k in "iu" for n in (1, 2, 4, 8)}
     values.update(f4=np.float32(1.5), f8=2.25, flag=np.bool_(True),
                   vstr="two words", fstr=np.bytes_(b"ab"),
                   arr=np.arange(5, dtype=np.int32))
+    values["ld"] = np.longdouble(1) / 3
     with h5py.File(tmp_path / "h.h5", "w") as f:
         for k, v in values.items():
             f.attrs[k] = v
-        f.attrs["ld"] = np.longdouble(1) / 3
     with no_h5py(), hdf5.File(tmp_path / "h.h5") as f:
-        assert sorted(f.attrs) == sorted([*values, "ld"])
+        assert sorted(f.attrs) == sorted(values)
         got = {k: f.attrs[k] for k in values}
-        with pytest.raises(FormatError, match="floating point of 16 bytes"):
-            f.attrs["ld"]
     with h5py.File(tmp_path / "h.h5") as g:
         for k in values:
             want = g.attrs[k]
