@@ -36,6 +36,7 @@ from pyspectrogram_tpu_torch.io.time_util import (
     millisecond_to_sample_ceil,
     sample_to_millisecond,
 )
+from pyspectrogram_tpu_torch.utils import profiling
 from pyspectrogram_tpu_torch.utils.errors import FormatError
 
 PROPERTIES_FILENAME = "drf_properties.h5"
@@ -264,6 +265,7 @@ def subdir_data_files(sub: Path) -> List[Tuple[int, Path]]:
         m = FILE_RE.match(p.name)
         if m:
             out.append((int(m.group(1)) * 1000 + int(m.group(2)), p))
+    profiling.count("files", len(out))
     out.sort(key=lambda t: t[0])
     return out
 
@@ -286,6 +288,7 @@ def files_overlapping(
     chan = channel_dir.name
     while ms <= last_ms:
         p = props.file_path(top, chan, ms)
+        profiling.count("syscalls")  # the stat of exists()
         if p.exists():
             out.append((ms, p))
         ms += props.file_cadence_millisecs

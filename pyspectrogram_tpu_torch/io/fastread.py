@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from pyspectrogram_tpu_torch.io import drf_format as fmt
+from pyspectrogram_tpu_torch.utils import profiling
 
 #: below this many bytes a parallel read is pure overhead
 MIN_PARALLEL_BYTES = 2 * 1024 * 1024
@@ -87,6 +88,7 @@ class FastSpanReader:
 
     # ------------------------------------------------------------ probing
     def _probe(self, path: Path) -> Optional[_FileMap]:
+        profiling.count("syscalls")  # the stat below
         try:
             st = path.stat()
         except OSError:
@@ -193,6 +195,7 @@ class FastSpanReader:
         # valid, so establish the all-False precondition here
         covered[:] = False
         row_bytes = out.dtype.itemsize * (out.shape[1] if out.ndim > 1 else 1)
+        span = profiling.current()
         jobs: List[Tuple[Path, int, int, int]] = []  # path, byte_off, dest_row, nrows
         for _, path in fmt.files_overlapping(props, channel_dir, start, end):
             fm = self._probe(path)
@@ -249,12 +252,14 @@ class FastSpanReader:
         def run(job):
             path, byte_off, dest_row, nrows = job
             fd = os.open(path, os.O_RDONLY)
+            profiling.count("syscalls", 2, into=span)  # the open and close
             try:
                 view = memoryview(out_b[dest_row : dest_row + nrows]).cast("B")
                 done = 0
                 want = nrows * row_bytes
                 while done < want:
                     got = os.preadv(fd, [view[done:]], byte_off + done)
+                    profiling.count("syscalls", into=span)
                     if got <= 0:
                         raise IOError(f"short read from {path}")
                     done += got

@@ -81,6 +81,10 @@ OSError. A write lands in this order: chunk bytes, B-tree entries, the
 dataspace's new dims, then (the caller's next dataset) the index row, so a
 reader that maps rows by byte offset without the lock never sees rows
 that are not there.
+
+While span recording is on (utils.profiling), each File opened counts one
+``files`` and every system call of its read path (open, flock, fstat,
+pread, close) one ``syscalls`` into the open span.
 """
 
 from __future__ import annotations
@@ -99,6 +103,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from pyspectrogram_tpu_torch.io import hdf5_blocks as blocks
+from pyspectrogram_tpu_torch.utils import profiling
 from pyspectrogram_tpu_torch.utils.errors import FormatError
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
@@ -1330,6 +1335,8 @@ class File:
         self.mode = mode
         flags = os.O_RDONLY if mode == "r" else os.O_RDWR | os.O_CREAT
         self._fd = os.open(self.filename, flags, 0o666)
+        profiling.count("files")
+        profiling.count("syscalls")
         self._datasets: Dict[str, Dataset] = {}
         self._gcols: Dict[int, Dict[int, bytes]] = {}
         self._heaps: Dict[int, blocks.FractalHeap] = {}
@@ -1341,12 +1348,14 @@ class File:
             if mode == "w":
                 os.ftruncate(self._fd, 0)
             self._size = os.fstat(self._fd).st_size
+            profiling.count("syscalls")
             if self._size == 0 and mode != "r":
                 self._create()
             else:
                 self._open_superblock()
         except BaseException:
             os.close(self._fd)
+            profiling.count("syscalls")
             self._fd = -1
             raise
 
@@ -1356,6 +1365,7 @@ class File:
         deadline = time.monotonic() + (LOCK_WAIT_S if self.mode == "r" else 0)
         while True:
             try:
+                profiling.count("syscalls")
                 fcntl.flock(self._fd, op | fcntl.LOCK_NB)
                 return
             except BlockingIOError:
@@ -1365,6 +1375,7 @@ class File:
                 time.sleep(0.001)
 
     def _read(self, addr: int, n: int) -> bytes:
+        profiling.count("syscalls")
         return os.pread(self._fd, n, self._base + addr)
 
     def _write(self, addr: int, data: bytes) -> None:
@@ -1403,12 +1414,14 @@ class File:
         ... past a user block) and read it: version 0/1, or version 2/3
         (checksummed, with its extension's header checked)."""
         pos, head = 0, os.pread(self._fd, 128, 0)
+        profiling.count("syscalls")
         while head[:8] != SIGNATURE:
             pos = 512 if pos == 0 else 2 * pos
             if pos >= self._size:
                 raise OSError(errno.EINVAL, "not an HDF5 file (no signature "
                               "at byte 0, 512, 1024, ...)", self.filename)
             head = os.pread(self._fd, 128, pos)
+            profiling.count("syscalls")
         # HDF5 takes the signature's place as the base address
         self._base = pos
         ver = self._sb_version = head[8]
@@ -1786,6 +1799,7 @@ class File:
                 self.flush()
             finally:
                 os.close(self._fd)
+                profiling.count("syscalls")
                 self._fd = -1
 
     def __enter__(self):

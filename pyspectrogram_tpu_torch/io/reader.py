@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from pyspectrogram_tpu_torch.io import drf_format as fmt
+from pyspectrogram_tpu_torch.utils import profiling
 from pyspectrogram_tpu_torch.utils.errors import (
     ChannelNotFoundError,
     FormatError,
@@ -91,6 +92,7 @@ class DigitalRFReader:
 
         self._channel_props(channel)  # ChannelNotFoundError on unknowns
         subs = fmt.list_subdirs(self.top_dir / channel)
+        profiling.count("files", len(subs))
         # A live writer creates a file before its first index row lands
         # (reference scenario: readers chase a growing capture,
         # drfProc.py:169-179) — skip not-yet-populated files/subdirs at
@@ -139,6 +141,7 @@ class DigitalRFReader:
         touch no interior directory."""
         self._channel_props(channel)  # ChannelNotFoundError on unknowns
         subs = fmt.list_subdirs(self.top_dir / channel)
+        profiling.count("files", len(subs))
         interior_ns = 0
         for sub in subs[:-1]:
             m = sub.stat().st_mtime_ns
@@ -393,6 +396,7 @@ class RFDataset:
         dout = np.stack(cols, axis=1) / self.ref_dict[chan]
         return n_st, dout
 
+    @profiling.spanned("io.bounds")
     def bnds_update(self) -> None:
         """Refresh bounds so reads chase a growing dataset
         (reference: drfProc.py:169-179).

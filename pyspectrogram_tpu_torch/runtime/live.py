@@ -26,6 +26,11 @@ only the rank's rows; a tick gathers the view (ring rows and tail rows
 together) and the median over ``chan``; a save gathers the ring and carry
 to global rank 0 alone (parallel.mesh.gather_to_root), which writes the
 one-device file.
+
+While span recording is on (utils.profiling), a tick is ``live.push``
+with a ``live.read`` per read (the system calls and files the io layer
+counts into it), ``live.refresh`` (the view, the median and the tail) and
+``live.readback`` (the host waiting for the view and the median).
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from pyspectrogram_tpu_torch.ops import stft
 from pyspectrogram_tpu_torch.ops.plain import to_dbfs
 from pyspectrogram_tpu_torch.parallel import mesh as pmesh
 from pyspectrogram_tpu_torch.runtime import checkpoint
+from pyspectrogram_tpu_torch.utils import profiling
 from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig
 
 #: per-push block target (samples): big enough to amortize the launches,
@@ -191,9 +197,10 @@ class LiveStreamEngine:
 
     def _read(self, start: int, n: int):
         """(plane-major block, sample mask) of ``n`` samples at ``start``."""
-        raw, mask = self.ds.reader.read_vector_raw(start, n, self.chan,
-                                                   return_mask=True)
-        return _plane_major(raw, self.isub, n), np.asarray(mask, bool)
+        with profiling.span("live.read"):
+            raw, mask = self.ds.reader.read_vector_raw(start, n, self.chan,
+                                                       return_mask=True)
+            return _plane_major(raw, self.isub, n), np.asarray(mask, bool)
 
     def _seed_carry(self) -> None:
         """Overlapping hops only: pre-fill the carry with the frame_len -
@@ -308,6 +315,7 @@ class LiveStreamEngine:
         return eng
 
     # ---------------------------------------------------------------- ingest
+    @profiling.spanned("live.push")
     def _push_new(self) -> int:
         """Read + push every complete new block; returns blocks pushed.
         On a mesh the bounds are the agreed ones, so every rank pushes the
@@ -398,8 +406,9 @@ class LiveStreamEngine:
             self._tail_cache_key = key
             self._tail_cache = (rows, colmask)
         cols = self.total_cols + grid
-        return (rows[torch.from_numpy(grid).to(rows.device)], cols,
-                colmask[grid])
+        # the grid is a strided slice of the rows: no index tensor to copy
+        # to the device, so the host does not wait here for the device
+        return rows[stride - 1::stride], cols, colmask[grid]
 
     # --------------------------------------------------------------- display
     def tick(self, cfg: SpectrogramConfig) -> Optional[StiResult]:
@@ -416,34 +425,39 @@ class LiveStreamEngine:
         n_target = max(1, min(cfg.ntime, W))
         stride = -(-W // n_target)                       # ceil
         n_disp = -(-W // stride)
-        cols = self.sti.strided_cols(self.state, n_disp, stride,
-                                     total_cols=total)
-        keep = cols >= 0
+        with profiling.span("live.refresh"):
+            cols = self.sti.strided_cols(self.state, n_disp, stride,
+                                         total_cols=total)
+            # the unfilled rows (negative columns) lead, so the kept rows
+            # are a slice: no mask to copy and no count to read back, and
+            # the host waits for the device only in the readback
+            first = int(np.count_nonzero(cols < 0))
 
-        freqs = stft.shifted_freqs(cfg.nfft, self.sr)
-        spec = None
-        if cfg.display_tile:
-            spec = make_tile_spec(freqs, cfg.freq_window_khz,
-                                  cfg.color_range_db)
-        tile = plot_freqs = sxx_dbfs = None
-        view, med = self.sti.refresh_local(
-            self.state, n_disp, stride, spec=spec, n_med=W,
-            total_cols=total)
-        view = view[torch.from_numpy(keep).to(view.device)]
-        kept_cols = cols[keep]
-        mask = self.col_mask[kept_cols % self.sti.ring_len]
-        if self._tail_pending:
-            # complete columns past the read cursor that do not yet fill a
-            # push block surface every tick, so the newest complete column
-            # appears in the tick it completes
-            t_rows, t_cols, t_mask = self._tail_view(spec, stride)
-            if t_rows is not None:
-                view = torch.cat([view, t_rows])
-                kept_cols = np.concatenate([kept_cols, t_cols])
-                mask = np.concatenate([mask, t_mask])
+            freqs = stft.shifted_freqs(cfg.nfft, self.sr)
+            spec = None
+            if cfg.display_tile:
+                spec = make_tile_spec(freqs, cfg.freq_window_khz,
+                                      cfg.color_range_db)
+            view, med = self.sti.refresh_local(
+                self.state, n_disp, stride, spec=spec, n_med=W,
+                total_cols=total)
+            view = view[first:]
+            kept_cols = cols[first:]
+            mask = self.col_mask[kept_cols % self.sti.ring_len]
+            if self._tail_pending:
+                # complete columns past the read cursor that do not yet
+                # fill a push block surface every tick, so the newest
+                # complete column appears in the tick it completes
+                t_rows, t_cols, t_mask = self._tail_view(spec, stride)
+                if t_rows is not None:
+                    view = torch.cat([view, t_rows])
+                    kept_cols = np.concatenate([kept_cols, t_cols])
+                    mask = np.concatenate([mask, t_mask])
         # one gather of the ring's and the tail's rows, one of the median
-        view = self.sti.gather_view(view).cpu().numpy()
-        med = self.sti.gather_median(med).cpu().numpy()
+        with profiling.span("live.readback"):
+            view = self.sti.gather_view(view).cpu().numpy()
+            med = self.sti.gather_median(med).cpu().numpy()
+        tile = plot_freqs = sxx_dbfs = None
         if spec is not None:
             tile, plot_freqs = view, tile_freqs(spec, freqs)
         else:

@@ -26,6 +26,10 @@ current CUDA stream: tabs on several threads serialize on the card, as
 they do on one TPU. On a mesh each rank's loop makes the same collectives
 in the same order, so whether an iteration recomputes or re-emits its
 cached result is decided by every rank together (:meth:`_unchanged`).
+
+While span recording is on (utils.profiling), each iteration of the loop
+is a ``processor.tick`` span of unit ``(tab_id, i)`` and its pacing a
+``processor.wait`` span.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from pyspectrogram_tpu_torch.runtime.signals import (
     StatsUpdated,
     Terminated,
 )
+from pyspectrogram_tpu_torch.utils import profiling
 from pyspectrogram_tpu_torch.utils.config import (
     SpectrogramConfig,
     resolve_time_span,
@@ -183,53 +188,53 @@ class SpectrogramProcessor:
             while self.is_running and not self._stop.is_set():
                 i += 1
                 cfg = self.config
-                self.ds.bnds_update()
-                self._emit_stats(cfg)
-                t0 = time.perf_counter()
-                if self._live is not None:
-                    result = self._live.tick(cfg)
-                else:
-                    # delta-aware written mode: an unchanged EFFECTIVE
-                    # request (config snapshot + resolved channel/sample
-                    # span) re-emits the last result instead of re-reading
-                    # and recomputing it; the compute skips its own bounds
-                    # refresh (this loop just refreshed)
-                    key = self.pipeline.request_key(cfg)
-                    if self._unchanged(key):
-                        result = self._last_result
-                        self.skipped_recomputes += 1
+                unit = (self.tab_id, i)
+                with profiling.span("processor.tick", unit):
+                    self.ds.bnds_update()
+                    self._emit_stats(cfg)
+                    t0 = time.perf_counter()
+                    if self._live is not None:
+                        result = self._live.tick(cfg)
                     else:
-                        result = self.pipeline.compute(
-                            cfg, refresh_bounds=False)
-                        self._last_key, self._last_result = key, result
-                self.latencies_s.append(time.perf_counter() - t0)
-                if self._stop.is_set() and delivered:
-                    # stop arrived while this iteration was in flight and
-                    # Terminated is out: a stale Iterated would overwrite
-                    # what the consumer captured at stop time. When
-                    # nothing was delivered yet, emit the run's only
-                    # result instead.
-                    return
+                        # delta-aware written mode: an unchanged EFFECTIVE
+                        # request (config snapshot + resolved channel/
+                        # sample span) re-emits the last result instead of
+                        # re-reading and recomputing it; the compute skips
+                        # its own bounds refresh (this loop just refreshed)
+                        key = self.pipeline.request_key(cfg)
+                        if self._unchanged(key):
+                            result = self._last_result
+                            self.skipped_recomputes += 1
+                        else:
+                            result = self.pipeline.compute(
+                                cfg, refresh_bounds=False)
+                            self._last_key, self._last_result = key, result
+                    self.latencies_s.append(time.perf_counter() - t0)
+                    if self._stop.is_set() and delivered:
+                        # stop arrived while this iteration was in flight
+                        # and Terminated is out: a stale Iterated would
+                        # overwrite what the consumer captured at stop
+                        # time. When nothing was delivered yet, emit the
+                        # run's only result instead.
+                        return
+                    if result is not None:
+                        self._emit_iterated(i, result)
+                        delivered = True
                 if result is None:
                     # capture still shorter than one STI column — keep
                     # chasing bounds until data appears
-                    if (self.max_iterations is not None
-                            and i + 1 >= self.max_iterations):
-                        self._terminate(TerminateReason.OK)
+                    pause = self.streaming_sleep
+                else:
+                    if self._stop.is_set():
                         return
-                    self._stop.wait(self.streaming_sleep)
-                    continue
-                self._emit_iterated(i, result)
-                delivered = True
-                if self._stop.is_set():
-                    return
+                    pause = (self.streaming_sleep if cfg.streaming
+                             else self.written_sleep)
                 if (self.max_iterations is not None
                         and i + 1 >= self.max_iterations):
                     self._terminate(TerminateReason.OK)
                     return
-                self._stop.wait(
-                    self.streaming_sleep if cfg.streaming else self.written_sleep
-                )
+                with profiling.span("processor.wait", unit):
+                    self._stop.wait(pause)
         except Exception:
             # report the loop error BEFORE the terminate emit: a raising
             # on_terminated callback would otherwise swallow the cause

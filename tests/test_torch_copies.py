@@ -68,13 +68,26 @@ VERBATIM = ["utils/config.py", "utils/errors.py", "utils/log.py",
 HDF5_IMPORT = "from pyspectrogram_tpu_torch.io import hdf5 as h5py"
 NOTE = re.compile(r"\n\nCopy of pyspectrogram_tpu/[\w/]+\.py: the port "
                   r"imports nothing of that\npackage\.\n")
+#: a whole line of the port's span instrumentation (utils.profiling): its
+#: import, a span decorator, a count or the capture of the open span; the
+#: originals have none
+SPAN_LINE = re.compile(
+    r"^[ \t]*(?:from pyspectrogram_tpu_torch\.utils import profiling"
+    r"|@profiling\.spanned\(\"[\w.]+\"\)"
+    r"|(?:\w+ = )?profiling\.(?:count|current)\([^()\n]*(?:\([^()\n]*\))?"
+    r"[^()\n]*\)(?:  # [^\n]*)?)\n", re.M)
+#: how many such lines each copy holds (none where not listed), so that new
+#: instrumentation in a verbatim copy shows here
+SPAN_LINES = {"io/drf_format.py": 3, "io/reader.py": 4, "io/fastread.py": 5}
 
 
 def _as_original(text: str) -> str:
-    """Port source with the import paths mapped back to the JAX package's
-    (the port's own HDF5 layer back to h5py) and the docstring note that
-    names the original dropped."""
-    return NOTE.sub("\n", text).replace(HDF5_IMPORT, "import h5py").replace(
+    """Port source with its span instrumentation lines dropped, the
+    import paths mapped back to the JAX package's (the port's own HDF5
+    layer back to h5py) and the docstring note that names the original
+    dropped."""
+    return NOTE.sub("\n", SPAN_LINE.sub("", text)).replace(
+        HDF5_IMPORT, "import h5py").replace(
         "pyspectrogram_tpu_torch", "pyspectrogram_tpu")
 
 
@@ -82,6 +95,7 @@ def _as_original(text: str) -> str:
 def test_verbatim_copy_is_the_original(rel):
     port = (REPO / "pyspectrogram_tpu_torch" / rel).read_text()
     assert NOTE.search(port), "the docstring names the original"
+    assert len(SPAN_LINE.findall(port)) == SPAN_LINES.get(rel, 0)
     orig = (REPO / "pyspectrogram_tpu" / rel).read_text()
     assert _as_original(port) == orig
 
