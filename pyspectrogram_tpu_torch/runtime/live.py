@@ -4,14 +4,27 @@ of pyspectrogram_tpu/runtime/live.py, on one torch device or, with
 
 The engine keeps a :class:`~pyspectrogram_tpu_torch.models.streaming.
 StreamingSti` ring + carry across ticks and, per tick, reads ONLY the
-samples written since the last pushed column, pushes them (host -> device
-from pinned memory, non-blocking), and serves the display from the ring:
+samples written since the last read, pushes each complete block (host ->
+device from pinned memory, non-blocking), and serves the display from the
+ring:
 
-* every new sample is read exactly once (``samples_read`` counts them);
+* every new sample is read exactly once, into a host staging of the
+  carry and the block being filled, from which the block is pushed and
+  the tail view (complete columns short of a block) is computed
+  (``samples_read`` counts the pushed samples and the carry seeds);
 * the refresh view is a stride-decimated trailing-window gather that
   leaves the device as a uint8 tile or float dB rows (<= ntime rows);
 * the median PSD is computed on the device over the window's columns
   (kernel B2 above 32 columns).
+
+On one device over a Digital RF directory the engine follows the capture's
+edge (io.edge.FollowedReader, which it gives its dataset), so bounds cost a
+few ``stat`` calls, and :meth:`LiveStreamEngine.ingest` reads and pushes
+what the capture gained between ticks: a streaming processor calls it
+through its pacing interval (runtime.processor), and the tick itself only
+catches up with what landed after the interval's last probe. Either way
+the ring, masks and cursors after a tick are those of ingesting every
+block inside the tick.
 
 The engine is rebuilt only when a SHAPE knob changes (:func:`_signature`);
 color-range and freq-window changes are display-edge knobs.
@@ -28,9 +41,12 @@ to global rank 0 alone (parallel.mesh.gather_to_root), which writes the
 one-device file.
 
 While span recording is on (utils.profiling), a tick is ``live.push``
-with a ``live.read`` per read (the system calls and files the io layer
-counts into it), ``live.refresh`` (the view, the median and the tail) and
-``live.readback`` (the host waiting for the view and the median).
+with a ``live.read`` per read (count ``samples``, and the system calls
+and files the io layer counts into it), ``live.refresh`` (the view, the
+median and the tail) and ``live.readback`` (the host waiting for the view
+and the median); an :meth:`LiveStreamEngine.ingest` that finds new
+samples is a ``live.push`` of its own, inside whatever span its caller
+holds.
 """
 
 from __future__ import annotations
@@ -48,7 +64,8 @@ from pyspectrogram_tpu_torch.display.tile import (
     quantize_tile_linear,
     tile_freqs,
 )
-from pyspectrogram_tpu_torch.io.reader import RFDataset
+from pyspectrogram_tpu_torch.io.edge import FollowedReader
+from pyspectrogram_tpu_torch.io.reader import DigitalRFReader, RFDataset
 from pyspectrogram_tpu_torch.io.time_util import samples_to_datetime64
 from pyspectrogram_tpu_torch.models.sti import (
     StiResult,
@@ -63,6 +80,7 @@ from pyspectrogram_tpu_torch.parallel import mesh as pmesh
 from pyspectrogram_tpu_torch.runtime import checkpoint
 from pyspectrogram_tpu_torch.utils import profiling
 from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig
+from pyspectrogram_tpu_torch.utils.errors import FormatError
 
 #: per-push block target (samples): big enough to amortize the launches,
 #: small enough that new data surfaces within a refresh tick (~0.07 s of
@@ -93,6 +111,37 @@ def _plane_major(raw: np.ndarray, isub: Optional[int], n: int) -> np.ndarray:
         _assemblable(raw), np.asarray([0], np.int64), n)
 
 
+class _Upload:
+    """Host arrays to one device. To a CUDA device through one pinned
+    buffer kept for the engine's life, which each copy reuses once the
+    last copy from it has left: a fresh pinned buffer (models.sti.
+    to_device) costs milliseconds of host time once the host allocator
+    has sat idle for a pacing interval (4-5 ms against 0.25 ms back to
+    back, for a 1 MiB push block on an H100's host), where a reused one
+    costs a copy."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._buf: Optional[torch.Tensor] = None
+        self._done = None
+
+    def __call__(self, a: np.ndarray) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return to_device(a, self.device)
+        if self._buf is None or self._buf.numel() < a.nbytes:
+            self._buf = torch.empty(a.nbytes, dtype=torch.uint8,
+                                    pin_memory=True)
+        elif self._done is not None:
+            self._done.synchronize()
+        host = self._buf[:a.nbytes].view(
+            torch.from_numpy(a[:0]).dtype).view(a.shape)
+        host.numpy()[...] = a
+        out = host.to(self.device, non_blocking=True)
+        self._done = torch.cuda.Event()
+        self._done.record()
+        return out
+
+
 class LiveStreamEngine:
     """One channel's incremental trailing-window stream over a (possibly
     growing) dataset, on one torch device or chan-sharded over ``mesh``
@@ -114,9 +163,16 @@ class LiveStreamEngine:
         ``init_device_state=False`` skips allocating the zeroed ring
         (resume() installs a restored one instead — avoids holding two
         full rings on the device during a large-window resume)."""
+        if mesh is None and type(ds.reader) is DigitalRFReader:
+            # one device over a directory: follow its edge, so bounds cost
+            # a few stat calls (the mesh agrees its ranks' full listings)
+            ds.reader = FollowedReader.following(ds.reader)
         self.ds = ds
+        #: whether :meth:`ingest` is cheap enough to call between ticks
+        self.follows = isinstance(ds.reader, FollowedReader)
         self.device = torch.device(device)
         self.mesh = mesh
+        self._probed: Optional[tuple] = None    # ingest()'s bounds
         self.sig = _signature(cfg)
         chan, isub = ds._split_entry(cfg.channel or ds.channels[0])
         self.chan, self.isub = chan, isub
@@ -159,9 +215,19 @@ class LiveStreamEngine:
         self._tail_pending = 0
         self._tail_cache_key = None
         self._tail_cache = None
-        self.tail_samples_read = 0              # peek-read observability
         self._cfg = cfg                         # numerics knobs for the tail
+        self._last_view = None                  # the last tick's (spec, stride)
+        # host staging: the carry's samples (the carry_len before the
+        # cursor; None until read) and the pieces read past the cursor
+        # toward the next block, (plane-major samples, mask) each
+        self._carry_pm: Optional[np.ndarray] = None
+        self._pieces: list = []
+        self._staged = 0
 
+        # a pushed block and a tail's samples each go to the device
+        # through a pinned buffer of their own
+        self._upload_block = _Upload(self.device)
+        self._upload_tail = _Upload(self.device)
         self.sti = StreamingSti(
             nfft=cfg.nfft, nint=cfg.nint, nsub=self.nsub,
             block_len=self.block_len, hop=self.hop, ring_len=ring_len,
@@ -187,9 +253,16 @@ class LiveStreamEngine:
         self.next_sample = self.start_sample + self.carry_len
         if init_device_state and self.carry_len:
             self._seed_carry()
+        # the cursor at the end of the last tick: a tick's backlog restart
+        # is decided from it, whatever ingest() pushed since
+        self._tick_cursor = self.next_sample
 
     def _bounds(self):
-        """The channel's (first, last) sample, agreed over the mesh."""
+        """The channel's (first, last) sample: the probe's while
+        :meth:`ingest` pushes up to it, else the dataset's (which a tick's
+        bounds refresh reads), agreed over the mesh."""
+        if self._probed is not None:
+            return self._probed
         lo, hi = self.ds.bnds[self.chan]
         if self.mesh is None:
             return lo, hi
@@ -198,6 +271,7 @@ class LiveStreamEngine:
     def _read(self, start: int, n: int):
         """(plane-major block, sample mask) of ``n`` samples at ``start``."""
         with profiling.span("live.read"):
+            profiling.count("samples", n)
             raw, mask = self.ds.reader.read_vector_raw(start, n, self.chan,
                                                        return_mask=True)
             return _plane_major(raw, self.isub, n), np.asarray(mask, bool)
@@ -211,6 +285,7 @@ class LiveStreamEngine:
         self.state.carry = to_device(
             self.sti.local_block(pm).astype(np.float32), self.device)
         self._carry_mask = mask
+        self._carry_pm = pm
         self.samples_read += self.carry_len
 
     def _col_valid(self, m: np.ndarray, n: int) -> np.ndarray:
@@ -304,7 +379,7 @@ class LiveStreamEngine:
         eng.state = eng.sti.place_state(state)
         eng.total_cols = int(meta["total_cols"])
         eng.start_sample = int(meta["start_sample"])
-        eng.next_sample = int(meta["next_sample"])
+        eng.next_sample = eng._tick_cursor = int(meta["next_sample"])
         eng.samples_read = int(meta["samples_read"])
         arrays = meta.get("arrays", {})
         if "col_mask" in arrays:
@@ -317,11 +392,11 @@ class LiveStreamEngine:
     # ---------------------------------------------------------------- ingest
     @profiling.spanned("live.push")
     def _push_new(self) -> int:
-        """Read + push every complete new block; returns blocks pushed.
-        On a mesh the bounds are the agreed ones, so every rank pushes the
-        same blocks."""
+        """Read + push every complete new block up to :meth:`_bounds`;
+        returns blocks pushed. On a mesh the bounds are the agreed ones,
+        so every rank pushes the same blocks."""
         lo, hi = self._bounds()
-        behind = hi + 1 - self.next_sample
+        behind = hi + 1 - self._tick_cursor
         max_backlog = self.window_cols * self.hop
         if behind > max_backlog + self.block_len:
             # the producer outran us by more than a whole window: restart
@@ -333,23 +408,10 @@ class LiveStreamEngine:
             self.start_sample = hi + 1 - max_backlog - self.carry_len
             self.next_sample = self.start_sample + self.carry_len
             self._carry_mask = np.ones(self.carry_len, bool)
+            self._carry_pm, self._pieces, self._staged = None, [], 0
             if self.carry_len:
                 self._seed_carry()
-        n_blocks = 0
-        while hi + 1 - self.next_sample >= self.block_len:
-            pm, mask = self._read(self.next_sample, self.block_len)
-            rows = (self.total_cols
-                    + np.arange(self.cols_per_block)) % self.sti.ring_len
-            m = np.concatenate([self._carry_mask, mask])
-            self.col_mask[rows] = self._col_valid(m, self.cols_per_block)
-            if self.carry_len:
-                self._carry_mask = m[len(m) - self.carry_len:]
-            self.samples_read += self.block_len
-            # the push copies only this rank's rows to its device
-            self.state, _ = self.sti.push(self.state, pm, return_db=False)
-            self.total_cols += self.cols_per_block
-            self.next_sample += self.block_len
-            n_blocks += 1
+        n_blocks = self._ingest(hi)
         # complete columns beyond the cursor that do not yet fill a whole
         # block (0..cols_per_block-1); the tail view surfaces them. The
         # next unpushed column starts carry_len before the cursor.
@@ -360,14 +422,92 @@ class LiveStreamEngine:
             if avail >= frame_len else 0)
         return n_blocks
 
+    def ingest(self) -> int:
+        """Between ticks: read what the capture gained since the last read,
+        push each block it completes and compute the tail view the next
+        tick will show (as the last tick's view); returns blocks pushed.
+        Costs a bounds probe when nothing landed (cheap where the engine
+        ``follows`` the edge). A backlog the next tick will restart the
+        ring for is left to that tick, so a tick's result stays that of
+        ingesting every block inside it."""
+        try:
+            lo, hi = self.ds.reader.get_bounds(self.chan)
+        except (OSError, KeyError, FormatError):
+            return 0        # a file mid-creation: the next probe sees it
+        if hi + 1 - self._tick_cursor > (self.window_cols * self.hop
+                                         + self.block_len):
+            return 0
+        if hi < self.next_sample + self._staged:
+            return 0
+        self._probed = (lo, hi)
+        try:
+            n_blocks = self._push_new()
+        finally:
+            self._probed = None
+        if self._tail_pending and self._last_view is not None:
+            # the next tick's tail view, from what was just staged: its
+            # cache serves that tick unless its catch-up or view differs
+            self._tail_view(*self._last_view)
+        return n_blocks
+
+    def _ingest(self, hi: int) -> int:
+        """Read the samples past the staging up to ``hi`` once, in pieces
+        that end at block boundaries, pushing each block as it completes;
+        returns blocks pushed."""
+        n_blocks = 0
+        while True:
+            end = self.next_sample + self._staged
+            n = min(hi + 1 - end, self.block_len - self._staged)
+            if n <= 0:
+                return n_blocks
+            self._pieces.append(self._read(end, n))
+            self._staged += n
+            if self._staged == self.block_len:
+                self._push_staged()
+                n_blocks += 1
+
+    def _host_carry(self) -> np.ndarray:
+        """The carry's samples on the host (read once after a resume)."""
+        if self._carry_pm is None:
+            self._carry_pm = self._read(self.next_sample - self.carry_len,
+                                        self.carry_len)[0]
+        return self._carry_pm
+
+    def _push_staged(self) -> None:
+        """Push the staged block and move the carry's samples and mask,
+        the column validity and the cursors past it."""
+        pm, mask = self._pieces[0]
+        if len(self._pieces) > 1:
+            pm = np.concatenate([p for p, _ in self._pieces], axis=1)
+            mask = np.concatenate([m for _, m in self._pieces])
+        rows = (self.total_cols
+                + np.arange(self.cols_per_block)) % self.sti.ring_len
+        m = np.concatenate([self._carry_mask, mask])
+        self.col_mask[rows] = self._col_valid(m, self.cols_per_block)
+        if self.carry_len:
+            self._carry_mask = m[len(m) - self.carry_len:]
+            if self.carry_len <= self.block_len:
+                self._carry_pm = pm[:, self.block_len - self.carry_len:].copy()
+            else:
+                self._carry_pm = np.concatenate(
+                    [self._host_carry(), pm], axis=1)[:, self.block_len:]
+        self.samples_read += self.block_len
+        # on a mesh the push copies only this rank's rows to its device
+        block = pm if self.mesh is not None else self._upload_block(pm)
+        self.state, _ = self.sti.push(self.state, block, return_db=False)
+        self.total_cols += self.cols_per_block
+        self.next_sample += self.block_len
+        self._pieces, self._staged = [], 0
+
     # ------------------------------------------------------------- tail view
     def _tail_view(self, spec, stride: int):
         """Display rows for the pending tail: complete columns past the
-        read cursor that do not yet fill a whole push block, computed as a
-        side view by the push's own policy (ops.stft.stream_columns) —
-        the cursor does NOT advance, so ring pushes stay block-aligned and
-        checkpoints exact. Cached on (cursor, pending, crop, colour range):
-        a stopped writer's tail is computed once.
+        push cursor that do not yet fill a whole push block, computed from
+        the staged samples as a side view by the push's own policy
+        (ops.stft.stream_columns) — the cursor does NOT advance, so ring
+        pushes stay block-aligned and checkpoints exact. Cached on
+        (cursor, pending, crop, colour range): a stopped writer's tail is
+        computed once.
 
         Returns (rows, cols, mask) continuing tick()'s stride grid
         (absolute column j displayed iff (j - total + 1) % stride == 0),
@@ -385,19 +525,28 @@ class LiveStreamEngine:
         if key == self._tail_cache_key:
             rows, colmask = self._tail_cache
         else:
-            # the next unpushed column starts carry_len before the read
+            # the next unpushed column starts carry_len before the push
             # cursor; the last pending column's frame ends frame_len past
-            # its start
+            # its start. Its samples are the staged carry and pieces.
             span = pending * self.hop + self.carry_len
-            pm, mask = self._read(self.next_sample - self.carry_len, span)
-            self.tail_samples_read += span
-            # pad to a pow2 column count, as the JAX engine's tail does
+            parts = self._pieces
+            if self.carry_len:
+                parts = [(self._host_carry(), self._carry_mask)] + parts
+            # one float32 copy of them, padded to a pow2 column count as
+            # the JAX engine's tail does
             n = 1 << (pending - 1).bit_length()
-            pm = np.pad(self.sti.local_block(pm).astype(np.float32),
-                        ((0, 0), (0, (n - pending) * self.hop)))
+            pm = np.zeros((self.sti.local_block(parts[0][0]).shape[0],
+                           span + (n - pending) * self.hop), np.float32)
+            mask = np.empty(span, bool)
+            at = 0
+            for piece, m in parts:
+                k = min(piece.shape[1], span - at)
+                pm[:, at:at + k] = self.sti.local_block(piece)[:, :k]
+                mask[at:at + k] = m[:k]
+                at += k
             cfg = self._cfg
             p = stft.stream_columns(
-                to_device(pm, self.device), n, nfft=cfg.nfft, nint=cfg.nint,
+                self._upload_tail(pm), n, nfft=cfg.nfft, nint=cfg.nint,
                 hop=self.hop, mode=cfg.mode, window=cfg.window, ref=self.ref)
             view = (to_dbfs(p, cfg.eps) if spec is None
                     else quantize_tile_linear(p, spec, cfg.eps, spec.qparams))
@@ -416,6 +565,7 @@ class LiveStreamEngine:
         from the ring (no recompute of already-pushed columns). Returns
         None while the capture is still shorter than one column."""
         self._push_new()
+        self._tick_cursor = self.next_sample
         total = self.total_cols
         if total == 0:
             return None
@@ -444,8 +594,9 @@ class LiveStreamEngine:
             view = view[first:]
             kept_cols = cols[first:]
             mask = self.col_mask[kept_cols % self.sti.ring_len]
+            self._last_view = (spec, stride)
             if self._tail_pending:
-                # complete columns past the read cursor that do not yet
+                # complete columns past the push cursor that do not yet
                 # fill a push block surface every tick, so the newest
                 # complete column appears in the tick it completes
                 t_rows, t_cols, t_mask = self._tail_view(spec, stride)

@@ -12,7 +12,11 @@ reference's ``DrfProcessor`` worker, drfProc.py:209-361):
   LiveStreamEngine, which reads only the samples written since its last
   tick;
 * bounds are refreshed and the effective settings echoed each iteration;
-* pacing sleeps between iterations (0.08 s streaming / 0.1 s written);
+* pacing sleeps between iterations (0.08 s streaming / 0.1 s written).
+  A streaming tab on one device whose live engine follows a capture's
+  edge (runtime.live) spends its pacing interval ingesting what the
+  capture gains, on its own thread: it probes every
+  :data:`INGEST_PROBE_S` and the next tick only catches up;
 * terminate reason codes: 0 user stop, 1 missing path, 4 loop exception
   (an init failure on an existing directory is 4 with the error as
   detail);
@@ -29,7 +33,7 @@ cached result is decided by every rank together (:meth:`_unchanged`).
 
 While span recording is on (utils.profiling), each iteration of the loop
 is a ``processor.tick`` span of unit ``(tab_id, i)`` and its pacing a
-``processor.wait`` span.
+``processor.wait`` span, which holds the spans of the interval's ingest.
 """
 
 from __future__ import annotations
@@ -63,6 +67,14 @@ from pyspectrogram_tpu_torch.utils.errors import TerminateReason
 from pyspectrogram_tpu_torch.utils.log import get_logger, log_event
 
 logger = get_logger("pstpu.processor")
+
+#: how often a streaming tab probes the capture's edge while it waits out
+#: its pacing interval. A probe that finds nothing costs a few stat calls:
+#: tens of microseconds on a local disk, ~1 ms where a stat crosses a
+#: network file system (an H100 host's 9p root), a seventh of one core
+#: at this rate. What lands after the interval's last probe is left to the
+#: next tick: about (INGEST_PROBE_S + a tick) of every period's appends.
+INGEST_PROBE_S = 0.004
 
 
 class SpectrogramProcessor:
@@ -234,7 +246,7 @@ class SpectrogramProcessor:
                     self._terminate(TerminateReason.OK)
                     return
                 with profiling.span("processor.wait", unit):
-                    self._stop.wait(pause)
+                    self._pace(pause)
         except Exception:
             # report the loop error BEFORE the terminate emit: a raising
             # on_terminated callback would otherwise swallow the cause
@@ -323,6 +335,26 @@ class SpectrogramProcessor:
             self._scheduler.drain(self, timeout)
 
     # ------------------------------------------------------------ internal
+    def _pace(self, pause: float) -> None:
+        """Wait out ``pause`` s from now, or until stopped. A streaming tab
+        on one device whose engine follows the capture's edge ingests
+        while it waits: a probe (and whatever it reads and pushes) every
+        INGEST_PROBE_S, none begun past the end of the pause, the waits
+        between them on the stop event so that abort() stays prompt."""
+        engine = (self._live.engine if self._live is not None
+                  and self.pipeline.mesh is None else None)
+        if engine is None or not engine.follows or pause <= 0:
+            self._stop.wait(pause)
+            return
+        deadline = time.monotonic() + pause
+        while not self._stop.is_set():
+            if time.monotonic() >= deadline:
+                return
+            engine.ingest()
+            left = deadline - time.monotonic()
+            if left <= 0 or self._stop.wait(min(INGEST_PROBE_S, left)):
+                return
+
     def _unchanged(self, key) -> bool:
         """Whether the written request ``key`` (StiPipeline.request_key)
         is the last computed one, so its cached result is re-emitted; on
