@@ -8,10 +8,11 @@ samples written since the last read, pushes each complete block (host ->
 device from pinned memory, non-blocking), and serves the display from the
 ring:
 
-* every new sample is read exactly once, into a host staging of the
-  carry and the block being filled, from which the block is pushed and
-  the tail view (complete columns short of a block) is computed
-  (``samples_read`` counts the pushed samples and the carry seeds);
+* every new sample is read exactly once, into one host buffer of the
+  block being filled, from which the block is pushed; the carry stays on
+  the device, and the tail view (complete columns short of a block) is
+  computed there from the carry and the staged block (``samples_read``
+  counts the pushed samples and the carry seeds);
 * the refresh view is a stride-decimated trailing-window gather that
   leaves the device as a uint8 tile or float dB rows (<= ntime rows);
 * the median PSD is computed on the device over the window's columns
@@ -168,8 +169,9 @@ class LiveStreamEngine:
             # a few stat calls (the mesh agrees its ranks' full listings)
             ds.reader = FollowedReader.following(ds.reader)
         self.ds = ds
-        #: whether :meth:`ingest` is cheap enough to call between ticks
-        self.follows = isinstance(ds.reader, FollowedReader)
+        #: whether :meth:`ingest` may run between ticks: on one device, over
+        #: a reader that follows the capture's edge (so a probe is cheap)
+        self.follows = mesh is None and isinstance(ds.reader, FollowedReader)
         self.device = torch.device(device)
         self.mesh = mesh
         self._probed: Optional[tuple] = None    # ingest()'s bounds
@@ -217,11 +219,12 @@ class LiveStreamEngine:
         self._tail_cache = None
         self._cfg = cfg                         # numerics knobs for the tail
         self._last_view = None                  # the last tick's (spec, stride)
-        # host staging: the carry's samples (the carry_len before the
-        # cursor; None until read) and the pieces read past the cursor
-        # toward the next block, (plane-major samples, mask) each
-        self._carry_pm: Optional[np.ndarray] = None
-        self._pieces: list = []
+        # host staging of the block being filled: the samples read past
+        # the push cursor, plane-major in the assembly's dtype (allocated
+        # at the first read), their mask and their count. The carry's
+        # samples are on the device alone (state.carry).
+        self._stage: Optional[np.ndarray] = None
+        self._stage_mask = np.empty(self.block_len, bool)
         self._staged = 0
 
         # a pushed block and a tail's samples each go to the device
@@ -285,7 +288,6 @@ class LiveStreamEngine:
         self.state.carry = to_device(
             self.sti.local_block(pm).astype(np.float32), self.device)
         self._carry_mask = mask
-        self._carry_pm = pm
         self.samples_read += self.carry_len
 
     def _col_valid(self, m: np.ndarray, n: int) -> np.ndarray:
@@ -396,21 +398,19 @@ class LiveStreamEngine:
         returns blocks pushed. On a mesh the bounds are the agreed ones,
         so every rank pushes the same blocks."""
         lo, hi = self._bounds()
-        behind = hi + 1 - self._tick_cursor
-        max_backlog = self.window_cols * self.hop
-        if behind > max_backlog + self.block_len:
-            # the producer outran us by more than a whole window: restart
-            # the ring at the new trailing window instead of reading
-            # samples the ring would evict unseen (reads stay O(window))
+        if self._outran(hi):
+            # restart the ring at the new trailing window instead of
+            # reading samples the ring would evict unseen (reads stay
+            # O(window))
             self.state = self.sti.init_state()
             self.total_cols = 0
             self.col_mask[:] = True
-            self.start_sample = hi + 1 - max_backlog - self.carry_len
+            self.start_sample = (hi + 1 - self.window_cols * self.hop
+                                 - self.carry_len)
             self.next_sample = self.start_sample + self.carry_len
-            self._carry_mask = np.ones(self.carry_len, bool)
-            self._carry_pm, self._pieces, self._staged = None, [], 0
+            self._staged = 0
             if self.carry_len:
-                self._seed_carry()
+                self._seed_carry()          # and the carry's mask
         n_blocks = self._ingest(hi)
         # complete columns beyond the cursor that do not yet fill a whole
         # block (0..cols_per_block-1); the tail view surfaces them. The
@@ -421,6 +421,13 @@ class LiveStreamEngine:
             max(0, (avail - frame_len) // self.hop + 1)
             if avail >= frame_len else 0)
         return n_blocks
+
+    def _outran(self, hi: int) -> bool:
+        """Whether the capture's last sample ``hi`` outran the last tick's
+        cursor by more than a whole window plus a block: the tick restarts
+        the ring then, and :meth:`ingest` leaves the backlog to it."""
+        return (hi + 1 - self._tick_cursor
+                > self.window_cols * self.hop + self.block_len)
 
     def ingest(self) -> int:
         """Between ticks: read what the capture gained since the last read,
@@ -434,10 +441,7 @@ class LiveStreamEngine:
             lo, hi = self.ds.reader.get_bounds(self.chan)
         except (OSError, KeyError, FormatError):
             return 0        # a file mid-creation: the next probe sees it
-        if hi + 1 - self._tick_cursor > (self.window_cols * self.hop
-                                         + self.block_len):
-            return 0
-        if hi < self.next_sample + self._staged:
+        if self._outran(hi) or hi < self.next_sample + self._staged:
             return 0
         self._probed = (lo, hi)
         try:
@@ -451,61 +455,56 @@ class LiveStreamEngine:
         return n_blocks
 
     def _ingest(self, hi: int) -> int:
-        """Read the samples past the staging up to ``hi`` once, in pieces
-        that end at block boundaries, pushing each block as it completes;
-        returns blocks pushed."""
+        """Read the samples past the staging up to ``hi`` once, into the
+        staging buffer in pieces that end at block boundaries, pushing each
+        block as it completes; returns blocks pushed."""
         n_blocks = 0
         while True:
-            end = self.next_sample + self._staged
-            n = min(hi + 1 - end, self.block_len - self._staged)
+            at = self._staged
+            n = min(hi + 1 - (self.next_sample + at), self.block_len - at)
             if n <= 0:
                 return n_blocks
-            self._pieces.append(self._read(end, n))
+            pm, mask = self._read(self.next_sample + at, n)
+            if self._stage is None or self._stage.dtype != pm.dtype:
+                # the first read, or an integer channel whose dtype
+                # io.reader settled at its first readable file: what was
+                # staged before is cast as a concatenation would cast it
+                stage = np.empty((pm.shape[0], self.block_len), pm.dtype)
+                if at:
+                    stage[:, :at] = self._stage[:, :at]
+                self._stage = stage
+            self._stage[:, at:at + n] = pm
+            self._stage_mask[at:at + n] = mask
             self._staged += n
             if self._staged == self.block_len:
                 self._push_staged()
                 n_blocks += 1
 
-    def _host_carry(self) -> np.ndarray:
-        """The carry's samples on the host (read once after a resume)."""
-        if self._carry_pm is None:
-            self._carry_pm = self._read(self.next_sample - self.carry_len,
-                                        self.carry_len)[0]
-        return self._carry_pm
-
     def _push_staged(self) -> None:
-        """Push the staged block and move the carry's samples and mask,
-        the column validity and the cursors past it."""
-        pm, mask = self._pieces[0]
-        if len(self._pieces) > 1:
-            pm = np.concatenate([p for p, _ in self._pieces], axis=1)
-            mask = np.concatenate([m for _, m in self._pieces])
+        """Push the staged block and move the carry's mask, the column
+        validity and the cursors past it."""
         rows = (self.total_cols
                 + np.arange(self.cols_per_block)) % self.sti.ring_len
-        m = np.concatenate([self._carry_mask, mask])
+        m = np.concatenate([self._carry_mask, self._stage_mask])
         self.col_mask[rows] = self._col_valid(m, self.cols_per_block)
-        if self.carry_len:
-            self._carry_mask = m[len(m) - self.carry_len:]
-            if self.carry_len <= self.block_len:
-                self._carry_pm = pm[:, self.block_len - self.carry_len:].copy()
-            else:
-                self._carry_pm = np.concatenate(
-                    [self._host_carry(), pm], axis=1)[:, self.block_len:]
+        self._carry_mask = m[len(m) - self.carry_len:]
         self.samples_read += self.block_len
-        # on a mesh the push copies only this rank's rows to its device
-        block = pm if self.mesh is not None else self._upload_block(pm)
+        # on a mesh the push copies only this rank's rows to its device;
+        # either way the block leaves the staging before the next read
+        block = (self._stage if self.mesh is not None
+                 else self._upload_block(self._stage))
         self.state, _ = self.sti.push(self.state, block, return_db=False)
         self.total_cols += self.cols_per_block
         self.next_sample += self.block_len
-        self._pieces, self._staged = [], 0
+        self._staged = 0
 
     # ------------------------------------------------------------- tail view
     def _tail_view(self, spec, stride: int):
         """Display rows for the pending tail: complete columns past the
         push cursor that do not yet fill a whole push block, computed from
-        the staged samples as a side view by the push's own policy
-        (ops.stft.stream_columns) — the cursor does NOT advance, so ring
-        pushes stay block-aligned and checkpoints exact. Cached on
+        the card's carry and the staged block as a side view by the push's
+        own policy (ops.stft.stream_columns) — the cursor does NOT advance,
+        so ring pushes stay block-aligned and checkpoints exact. Cached on
         (cursor, pending, crop, colour range): a stopped writer's tail is
         computed once.
 
@@ -526,27 +525,20 @@ class LiveStreamEngine:
             rows, colmask = self._tail_cache
         else:
             # the next unpushed column starts carry_len before the push
-            # cursor; the last pending column's frame ends frame_len past
-            # its start. Its samples are the staged carry and pieces.
-            span = pending * self.hop + self.carry_len
-            parts = self._pieces
-            if self.carry_len:
-                parts = [(self._host_carry(), self._carry_mask)] + parts
-            # one float32 copy of them, padded to a pow2 column count as
-            # the JAX engine's tail does
+            # cursor, so the pending columns' frames cover the carry and
+            # the first pending*hop staged samples; zero-padded to a pow2
+            # column count as the JAX engine's tail does
+            k = pending * self.hop
             n = 1 << (pending - 1).bit_length()
-            pm = np.zeros((self.sti.local_block(parts[0][0]).shape[0],
-                           span + (n - pending) * self.hop), np.float32)
-            mask = np.empty(span, bool)
-            at = 0
-            for piece, m in parts:
-                k = min(piece.shape[1], span - at)
-                pm[:, at:at + k] = self.sti.local_block(piece)[:, :k]
-                mask[at:at + k] = m[:k]
-                at += k
+            carry = self.state.carry
+            staged = self._upload_tail(
+                self.sti.local_block(self._stage[:, :k]))
+            buf = torch.cat([carry, staged.to(torch.float32), carry.new_zeros(
+                (carry.shape[0], (n - pending) * self.hop))], dim=1)
+            mask = np.concatenate([self._carry_mask, self._stage_mask[:k]])
             cfg = self._cfg
             p = stft.stream_columns(
-                self._upload_tail(pm), n, nfft=cfg.nfft, nint=cfg.nint,
+                buf, n, nfft=cfg.nfft, nint=cfg.nint,
                 hop=self.hop, mode=cfg.mode, window=cfg.window, ref=self.ref)
             view = (to_dbfs(p, cfg.eps) if spec is None
                     else quantize_tile_linear(p, spec, cfg.eps, spec.qparams))

@@ -337,12 +337,12 @@ class SpectrogramProcessor:
     # ------------------------------------------------------------ internal
     def _pace(self, pause: float) -> None:
         """Wait out ``pause`` s from now, or until stopped. A streaming tab
-        on one device whose engine follows the capture's edge ingests
-        while it waits: a probe (and whatever it reads and pushes) every
-        INGEST_PROBE_S, none begun past the end of the pause, the waits
-        between them on the stop event so that abort() stays prompt."""
-        engine = (self._live.engine if self._live is not None
-                  and self.pipeline.mesh is None else None)
+        whose engine may ingest between ticks (LiveStreamEngine.follows)
+        ingests while it waits: a probe (and whatever it reads and
+        pushes) every INGEST_PROBE_S, none begun past the end of the
+        pause, the waits between them on the stop event so that abort()
+        stays prompt."""
+        engine = self._live.engine if self._live is not None else None
         if engine is None or not engine.follows or pause <= 0:
             self._stop.wait(pause)
             return

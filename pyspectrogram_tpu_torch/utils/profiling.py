@@ -27,8 +27,10 @@ the device was busy.
 The spans of a live tab's loop (runtime.processor, runtime.live, io):
 ``processor.tick`` (one iteration, unit ``(tab_id, i)``) holding
 ``io.bounds`` (count ``files``), ``live.push`` with its ``live.read``
-children (count ``syscalls``), ``live.refresh`` (the tail's ``live.read``
-inside) and ``live.readback``; then ``processor.wait``, the pacing.
+children (counts ``samples`` and ``syscalls``), ``live.refresh`` (the
+view, the median and the tail, which reads nothing) and ``live.readback``;
+then ``processor.wait``, the pacing, holding the ``live.push`` of each
+ingest between ticks.
 """
 
 from __future__ import annotations

@@ -6,10 +6,11 @@ Blocks land before the interval, between its probes and after its last
 probe. At every tick the engine that ingested between ticks gives the
 view, median, times, mask, cursors and ring of the serial engine (which
 ingests only in its ticks, bounds from the full listing) bit for bit;
-every sample is read once, the tail from what was staged, and on noise the
-view is the JAX engine's, which reads it all from the files in its ticks;
-a checkpoint saved between ticks is the serial engine's for the same
-pushed blocks.
+every sample is read once, the tail from the card's carry and what was
+staged (a resumed engine reads nothing before its cursor), and on noise
+the view is the JAX engine's, which reads it all from the files in its
+ticks; a checkpoint saved between ticks is the serial engine's for the
+same pushed blocks.
 The processor keeps its pause, probes inside it and stops within a probe
 slice of abort(); a capture in memory keeps the serial tick.
 """
@@ -37,6 +38,8 @@ from pyspectrogram_tpu_torch.utils.errors import TerminateReason
 SR = 100_000                      # 10,000 samples a file, 100,000 a subdir
 START = 1_451_661_840 * SR
 F0 = 12_500.0
+#: complex int16 samples ("sc16"), which the push takes raw
+SC16 = np.dtype([("r", np.int16), ("i", np.int16)])
 
 
 class _Listing(DigitalRFReader):
@@ -44,10 +47,11 @@ class _Listing(DigitalRFReader):
 
 
 class _Capture:
-    """A capture the port's writer grows by a seeded tone plus noise."""
+    """A capture the port's writer grows by a seeded tone plus noise, in
+    complex64 or in sc16 at 2^13 to full scale."""
 
-    def __init__(self, top, n0):
-        self.w = DigitalRFWriter(top, "live", np.complex64,
+    def __init__(self, top, n0, dtype=np.complex64):
+        self.w = DigitalRFWriter(top, "live", dtype,
                                  start_global_index=START,
                                  sample_rate_numerator=SR,
                                  file_cadence_millisecs=100,
@@ -59,7 +63,10 @@ class _Capture:
         x = tone_signal(n, SR, [F0], start_sample=self.n).reshape(-1)
         rng = np.random.default_rng(self.n)
         x = x[:, None] * [1.0, 0.5] + 1e-3 * rng.standard_normal((n, 2))
-        self.w.rf_write(x.astype(np.complex64))
+        if self.w.user_dtype == SC16:
+            x, y = np.zeros(x.shape, SC16), np.round(x * 2 ** 13)
+            x["r"], x["i"] = y.real, y.imag
+        self.w.rf_write(x.astype(self.w.user_dtype))
         self.n += n
 
 
@@ -124,10 +131,15 @@ def _reads(ds):
     return spans
 
 
-@pytest.mark.parametrize("cfg_kw,target", CFGS)
-def test_ingest_between_ticks_is_the_serial_tick(tmp_path, cfg_kw, target):
+@pytest.mark.parametrize("cfg_kw,target,dtype", [
+    *[pytest.param(kw, t, np.complex64, id=f"cfg_kw{i}-{t}")
+      for i, (kw, t) in enumerate(CFGS)],
+    pytest.param(*CFGS[2], SC16, id="sc16-64")])      # int16 staged raw
+def test_ingest_between_ticks_is_the_serial_tick(tmp_path, cfg_kw, target,
+                                                 dtype):
     cfg = SpectrogramConfig(streaming=True, **cfg_kw)
-    caps = [_Capture(tmp_path / "a", 30_000), _Capture(tmp_path / "b", 30_000)]
+    caps = [_Capture(tmp_path / "a", 30_000, dtype),
+            _Capture(tmp_path / "b", 30_000, dtype)]
     sds, ser = _serial(tmp_path / "a", cfg, target_block_samples=target)
     fds, fol = _followed(tmp_path / "b", cfg, target_block_samples=target)
     if target == 64:
@@ -279,6 +291,28 @@ def test_a_checkpoint_between_ticks_is_the_serial_engines(tmp_path):
     rf = _tick(fds, res, cfg)
     for f in ("times", "mask", "sxx_dbfs", "sxx_med_dbfs"):
         np.testing.assert_array_equal(getattr(rs, f), getattr(rf, f))
+
+
+def test_a_resumed_engine_reads_nothing_before_its_cursor(tmp_path):
+    """After a resume the restored carry on the device serves the tail:
+    ingest() and a tick with a pending tail read only from the saved
+    cursor on, and match the engine that never stopped bit for bit."""
+    cfg = SpectrogramConfig(nfft=128, ntime=1000, stream_seconds=0.1, hop=48,
+                            streaming=True)
+    cap = _Capture(tmp_path, 30_000)
+    ds, eng = _followed(tmp_path, cfg, target_block_samples=2048)
+    _tick(ds, eng, cfg)
+    ck = eng.save(tmp_path / "s.ckpt")
+    rds = RFDataset(tmp_path)
+    res = LiveStreamEngine.resume(rds, cfg, ck, "cpu")
+    reads, cursor = _reads(rds), res.next_sample
+    cap.append(7)                   # still short of a block: no push
+    eng.ingest()
+    res.ingest()
+    _bit_equal(_tick(ds, eng, cfg), _tick(rds, res, cfg), eng, res)
+    assert res.next_sample == cursor and res._tail_pending and res.carry_len
+    assert reads[0][0] == cursor
+    assert [s for s, _ in reads[1:]] == [s + n for s, n in reads[:-1]]
 
 
 def _streaming(top, cfg, pause, **kw):
