@@ -815,8 +815,9 @@ def phase_live(dev, card, x, sr):
     peaks = check_peaks(res, "live tick")
     torch.cuda.synchronize()
     run = read_counts()
-    check(run["stream_psd"] > 0 and run["median"] > 0,
-          f"live engine launches {run}")
+    # B2 once a tick (its CUDA graph's replays counted as launches)
+    check(run["stream_psd"] > 0 and run["median"] == 4,
+          f"live engine launches {run}, expected B2 once in each of 4 ticks")
     add_counts(total, run)
     # the tick's median is exact: np.median of the read-back window
     rows = torch.from_numpy((eng.state.total_cols - W + np.arange(W))
@@ -2143,8 +2144,10 @@ def phase_live_tabs(dev, card, x, sr):
         check(not writer.is_alive()
               and not any(p._thread.is_alive() for p in tabs),
               f"live_tabs_{n_tabs}: threads still running")
-        check(run["stream_psd"] > 0 and run["median"] > 0,
-              f"live_tabs_{n_tabs}: launches {run}")
+        # B2 once a tick (its CUDA graph's replays counted as launches)
+        check(run["stream_psd"] > 0 and run["median"] == n_tabs * iters,
+              f"live_tabs_{n_tabs}: launches {run}, expected B2 once in "
+              f"each of {n_tabs} x {iters} ticks")
         add_counts(total, run)
         p50s, p90s, peaks = [], [], []
         for i, (p, ev, tm) in enumerate(zip(tabs, events, terms)):

@@ -12,6 +12,7 @@ checkout's ``build/kernels`` directory (``PSTORCH_BUILD_DIR`` overrides).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -37,6 +38,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+_TALLY = threading.local()
 _LIB: Optional[ctypes.CDLL] = None
 #: wall seconds the last build took in this process (0.0 when the library
 #: came from the build directory) and the compiler's output (ptxas
@@ -135,11 +137,35 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
 
 
-def count(fn, attr: str = "launches") -> None:
-    """Add one to a wrapper's launch counter ``fn.<attr>``, under a lock:
-    processors on several threads launch the same kernels."""
+def count(fn, attr: str = "launches", n: int = 1) -> None:
+    """Add ``n`` to a wrapper's launch counter ``fn.<attr>``, under a lock:
+    processors on several threads launch the same kernels. A launch
+    recorded into a CUDA graph being captured runs only when the graph
+    replays, so it is not counted here: the graph's owner counts, at each
+    replay, what a :func:`tally` of its warm-up counted."""
+    cuda = torch.cuda
+    if cuda.is_initialized() and cuda.is_current_stream_capturing():
+        return
     with _COUNT_LOCK:
-        setattr(fn, attr, getattr(fn, attr) + 1)
+        setattr(fn, attr, getattr(fn, attr) + n)
+    tallied = getattr(_TALLY, "counts", None)
+    if tallied is not None:
+        tallied[fn, attr] = tallied.get((fn, attr), 0) + n
+
+
+@contextlib.contextmanager
+def tally():
+    """The counts this thread adds inside the block, as ``{(wrapper,
+    counter): n}`` (other threads' launches are not in it)."""
+    outer = getattr(_TALLY, "counts", None)
+    _TALLY.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _TALLY.counts = outer
+        if outer is not None:
+            for k, n in counts.items():
+                outer[k] = outer.get(k, 0) + n
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -272,7 +272,13 @@ class StreamingSti:
 
     # ------------------------------------------------------------- queries
     def valid_cols(self, state: StreamState) -> int:
-        return int(min(state.total_cols, self.ring_len))
+        return self.filled_cols(state.total_cols)
+
+    def filled_cols(self, total_cols: int) -> int:
+        """The ring's filled columns once ``total_cols`` are pushed: all
+        that a refresh (:meth:`refresh_local`) takes of its column count,
+        the rows aside."""
+        return min(int(total_cols), self.ring_len)
 
     def _ordered_ring(self, state: StreamState) -> torch.Tensor:
         """Ring in canonical layout: oldest first in the LAST n slots,
@@ -280,10 +286,27 @@ class StreamingSti:
         return torch.roll(state.ring, -(state.total_cols % self.ring_len),
                           dims=0)
 
-    def _rows(self, cols: np.ndarray) -> torch.Tensor:
-        """Storage rows of absolute columns (negative columns wrap onto
-        rows that are provably unwritten while the span < ring_len)."""
-        return torch.from_numpy(np.mod(cols, self.ring_len)).to(self.device)
+    def newest_row(self, total_cols: int) -> int:
+        """Storage row of the newest of ``total_cols`` columns (folded or
+        not: the fold keeps every row)."""
+        return (int(total_cols) - 1) % self.ring_len
+
+    def _cursor(self, state: StreamState) -> torch.Tensor:
+        """The state's :meth:`newest_row` as a (1,) int64 tensor on the
+        stream's device."""
+        return torch.tensor([self.newest_row(state.total_cols)],
+                            device=self.device)
+
+    def cursor_rows(self, cursor: torch.Tensor, n: int,
+                    step: int = 1) -> torch.Tensor:
+        """Storage rows of the ``n`` columns ``step`` apart that end at the
+        newest one, oldest first, built on ``cursor``'s device from
+        ``cursor``, a (1,) int64 tensor holding :meth:`newest_row`: column
+        c is at row c mod ring_len, and negative (unfilled) columns wrap
+        onto rows that are provably unwritten while the span < ring_len.
+        No host array is copied to the device."""
+        back = torch.arange((1 - n) * step, 1, step, device=cursor.device)
+        return torch.remainder(cursor + back, self.ring_len)
 
     def snapshot(self, state: StreamState) -> Tuple[np.ndarray, int]:
         """Host copy of the ring in dBFS (oldest column first; unfilled
@@ -312,12 +335,12 @@ class StreamingSti:
             return window
         return (1 << (n_valid.bit_length() - 1)) if ladder else n_valid
 
-    def _median_db(self, state: StreamState, n: int) -> torch.Tensor:
+    def _median_db(self, state: StreamState, n: int,
+                   cursor: torch.Tensor) -> torch.Tensor:
         """dBFS median (nsub_l, nfft) of this rank's subchannels over the
-        newest ``n`` columns, taken straight from rotated storage (row of
-        column c is c % ring_len)."""
-        rows = self._rows(state.total_cols - n + np.arange(n))
-        sel = state.ring.index_select(0, rows)
+        newest ``n`` columns, taken straight from rotated storage (the
+        rows :meth:`cursor_rows` builds from ``cursor``)."""
+        sel = state.ring.index_select(0, self.cursor_rows(cursor, n))
         return to_dbfs(stft.median_over_time(sel), self.eps)
 
     def median_psd(self, state: StreamState, n_cols: Optional[int] = None,
@@ -333,8 +356,8 @@ class StreamingSti:
         ``n_cols`` the median is exact over every valid column.
         ``total_cols`` is the caller's unfolded count, as in the JAX
         class."""
-        n_valid = (min(int(total_cols), self.ring_len)
-                   if total_cols is not None else self.valid_cols(state))
+        n_valid = self.filled_cols(total_cols if total_cols is not None
+                                   else state.total_cols)
         if n_valid == 0:
             raise ValueError("no columns pushed yet")
         if n_cols is None:
@@ -342,7 +365,7 @@ class StreamingSti:
         else:
             n = self._span(n_valid, min(self.ring_len, int(n_cols)),
                            span_ladder)
-        med = self._median_db(state, n)
+        med = self._median_db(state, n, self._cursor(state))
         return self._gather(med, MEDIAN_SPEC).cpu().numpy()
 
     # ------------------------------------------------- trailing-window view
@@ -366,11 +389,12 @@ class StreamingSti:
                 f"ring ({self.ring_len}) — selected rows would alias")
 
     def _trailing_view(self, state: StreamState, n_disp: int, stride: int,
-                       spec) -> torch.Tensor:
+                       spec, cursor: torch.Tensor) -> torch.Tensor:
         """The stride-decimated trailing window gathered out of rotated
-        storage: dBFS floats, or a uint8 tile with ``spec``."""
+        storage (the rows :meth:`cursor_rows` builds from ``cursor``):
+        dBFS floats, or a uint8 tile with ``spec``."""
         sel = state.ring.index_select(
-            0, self._rows(self.strided_cols(state, n_disp, stride)))
+            0, self.cursor_rows(cursor, n_disp, stride))
         if spec is None:
             return to_dbfs(sel, self.eps)
         return quantize_tile_linear(sel, spec, self.eps, spec.qparams)
@@ -384,7 +408,8 @@ class StreamingSti:
         whose column index is negative (see strided_cols) read unwritten
         slots."""
         self._check_span(n_disp, stride)
-        view = self._trailing_view(state, n_disp, stride, spec)
+        view = self._trailing_view(state, n_disp, stride, spec,
+                                   self._cursor(state))
         return self._gather(view, RING_SPEC).cpu().numpy()
 
     def refresh_view(self, state: StreamState, n_disp: int, stride: int,
@@ -406,21 +431,29 @@ class StreamingSti:
     def refresh_local(self, state: StreamState, n_disp: int, stride: int,
                       spec=None, n_med: Optional[int] = None,
                       total_cols: Optional[int] = None,
-                      span_ladder: bool = True):
+                      span_ladder: bool = True,
+                      cursor: Optional[torch.Tensor] = None):
         """:meth:`refresh_view`'s (view, med_db) as this rank's device
         tensors, (n_disp, nsub_l, ...) and (nsub_l, nfft), before the
-        gather (the live engine adds its tail rows to the view first)."""
+        gather. Of ``total_cols`` it takes only :meth:`filled_cols`.
+
+        The rows are built on the device from ``cursor``
+        (:meth:`cursor_rows`), by default one copied from the state's
+        counter. A cursor the caller keeps on the device lets the call
+        launch without waiting on a copy, and be captured in a CUDA graph
+        that replays with the cursor's new value."""
         self._check_span(n_disp, stride)
-        total = (int(total_cols) if total_cols is not None
-                 else state.total_cols)
-        n_valid = min(total, self.ring_len)
+        n_valid = self.filled_cols(total_cols if total_cols is not None
+                                   else state.total_cols)
         if n_valid == 0:
             raise ValueError("no columns pushed yet")
         window = (min(self.ring_len, int(n_med)) if n_med is not None
                   else self.ring_len)
         n = self._span(n_valid, window, span_ladder)
-        return (self._trailing_view(state, n_disp, stride, spec),
-                self._median_db(state, n))
+        if cursor is None:
+            cursor = self._cursor(state)
+        return (self._trailing_view(state, n_disp, stride, spec, cursor),
+                self._median_db(state, n, cursor))
 
     def gather_view(self, view: torch.Tensor) -> torch.Tensor:
         """The global (rows, nsub, ...) view of this rank's (rows, nsub_l,

@@ -16,7 +16,13 @@ ring:
 * the refresh view is a stride-decimated trailing-window gather that
   leaves the device as a uint8 tile or float dB rows (<= ntime rows);
 * the median PSD is computed on the device over the window's columns
-  (kernel B2 above 32 columns).
+  (kernel B2 above 32 columns);
+* on one CUDA device the refresh's device chain (the view's gather and
+  tile, the median's gather, B2, dB) is one CUDA graph that each tick
+  replays, its rows built on the card from the newest column's row
+  (:class:`_GraphedRefresh`); the readback copies into kept pinned
+  buffers. On a CPU device or a mesh the chain runs eagerly
+  (:class:`_EagerRefresh`).
 
 On one device over a Digital RF directory the engine follows the capture's
 edge (io.edge.FollowedReader, which it gives its dataset), so bounds cost a
@@ -45,15 +51,18 @@ While span recording is on (utils.profiling), a tick is ``live.push``
 with a ``live.read`` per read (count ``samples``, and the system calls
 and files the io layer counts into it), ``live.refresh`` (the view, the
 median and the tail) and ``live.readback`` (the host waiting for the view
-and the median); an :meth:`LiveStreamEngine.ingest` that finds new
-samples is a ``live.push`` of its own, inside whatever span its caller
-holds.
+and the median). On an engine that graphs its refresh, ``live.refresh``
+counts ``graph`` (1 when it replays the graph, 0 when it runs eagerly)
+and ``graph_captures`` when it captures one (that tick runs eagerly). An
+:meth:`LiveStreamEngine.ingest` that finds new samples is a ``live.push``
+of its own, inside whatever span its caller holds.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 from fractions import Fraction
 from typing import Optional, Union
 
@@ -68,6 +77,7 @@ from pyspectrogram_tpu_torch.display.tile import (
 from pyspectrogram_tpu_torch.io.edge import FollowedReader
 from pyspectrogram_tpu_torch.io.reader import DigitalRFReader, RFDataset
 from pyspectrogram_tpu_torch.io.time_util import samples_to_datetime64
+from pyspectrogram_tpu_torch.kernels import _build
 from pyspectrogram_tpu_torch.models.sti import (
     StiResult,
     _assemblable,
@@ -141,6 +151,144 @@ class _Upload:
         self._done = torch.cuda.Event()
         self._done.record()
         return out
+
+
+class _EagerRefresh:
+    """A live engine's refresh on a CPU device or over a mesh: the
+    engine's ``StreamingSti.refresh_local`` call as it stands, its rows
+    from a cursor copied from the state; the readback gathers each output
+    over the mesh's ranks and copies it to the host."""
+
+    def __init__(self, sti: StreamingSti):
+        self.sti = sti
+
+    def refresh(self, eng: "LiveStreamEngine", n_disp: int, stride: int,
+                spec, crop_qp, total: int):
+        """(view, median) device tensors of ``eng``'s refresh."""
+        return self.sti.refresh_local(eng.state, n_disp, stride, spec=spec,
+                                      n_med=eng.window_cols,
+                                      total_cols=total)
+
+    def readback(self, view: torch.Tensor, med: torch.Tensor,
+                 tail: Optional[torch.Tensor]):
+        """Host arrays of the view, the median and the tail rows (None
+        without a tail), each of every rank's subchannels."""
+        sti = self.sti
+        return (sti.gather_view(view).cpu().numpy(),
+                sti.gather_median(med).cpu().numpy(),
+                None if tail is None else sti.gather_view(tail).cpu().numpy())
+
+
+#: one refresh graph captured at a time in the process (each tab's engine
+#: captures on its own thread)
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _GraphedRefresh:
+    """A live engine's refresh on one CUDA device, as one CUDA graph.
+
+    The engine's ``StreamingSti.refresh_local`` call (through the class
+    attribute, so whatever is patched there is what runs) takes its rows
+    from ``cursor_rows`` of a (1,) int64 device cursor, which the call
+    first copies from a kept pinned host word: the chain launches without
+    a pageable copy or a wait. A key holds every other input of the call:
+    the view's shape, the ring's filled columns (all the call takes of the
+    column count, so a key covers whatever median span the call picks),
+    crop, colour range and the ring's storage. A key runs eagerly on the
+    tick it first appears (each tick while the window fills), is captured
+    on the next tick that repeats it, after a warm-up on a side stream
+    whose outputs that tick returns, and is replayed after that; the host
+    then writes the cursor and replays. Any other key drops the graph and
+    its pool. The kernel launches the warm-up counted are counted again at
+    each replay. The readback copies the outputs and the tail rows into
+    kept pinned buffers and waits on one event."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._cursor_host = torch.zeros(1, dtype=torch.int64,
+                                        pin_memory=True)
+        self._cursor_word = self._cursor_host.numpy()
+        self._cursor = torch.zeros(1, dtype=torch.int64, device=device)
+        self._side = torch.cuda.Stream(device)
+        self._seen = None       # the key of the last eager refresh
+        self._key = None        # the key of the captured graph
+        self._graph = None
+        self._out = None        # the graph's static (view, median)
+        self._launches = {}     # the launches a replay makes, by counter
+        self._pinned = {}       # readback buffers by slot
+        self._copied = torch.cuda.Event()
+
+    def refresh(self, eng: "LiveStreamEngine", n_disp: int, stride: int,
+                spec, crop_qp, total: int):
+        """(view, median) device tensors of ``eng``'s refresh."""
+        sti, state = eng.sti, eng.state
+        key = (n_disp, stride, sti.filled_cols(total), crop_qp,
+               state.ring.data_ptr(), tuple(state.ring.shape))
+        # the last tick's readback waited for its copy of the word
+        self._cursor_word[0] = sti.newest_row(total)
+
+        def run():
+            self._cursor.copy_(self._cursor_host, non_blocking=True)
+            return sti.refresh_local(state, n_disp, stride, spec=spec,
+                                     n_med=eng.window_cols,
+                                     total_cols=total, cursor=self._cursor)
+
+        if key != self._key:
+            self._graph = self._out = self._key = None
+            if key != self._seen:
+                profiling.count("graph", 0)
+                out = run()
+                self._seen = key
+                return out
+            # warm-up and capture on a side stream of this engine's own,
+            # in this thread's mode: other tabs' threads keep launching,
+            # and no two captures share a stream
+            current = torch.cuda.current_stream(self.device)
+            self._side.wait_stream(current)
+            graph = torch.cuda.CUDAGraph()
+            with _CAPTURE_LOCK, torch.cuda.stream(self._side):
+                with _build.tally() as launches:
+                    out = run()
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self._out = run()
+                finally:
+                    graph.capture_end()
+            current.wait_stream(self._side)
+            self._graph, self._key, self._launches = graph, key, launches
+            profiling.count("graph", 0)
+            profiling.count("graph_captures")
+            return out                  # the warm-up's
+        self._graph.replay()
+        for (fn, attr), n in self._launches.items():
+            _build.count(fn, attr, n)
+        profiling.count("graph")
+        return self._out
+
+    def _into(self, slot: str, t: torch.Tensor) -> np.ndarray:
+        """Start ``t``'s copy into the kept pinned buffer ``slot`` (grown,
+        never shrunk: the tail's rows vary by the tick); its host array,
+        valid once the readback's event has passed."""
+        nbytes = t.numel() * t.element_size()
+        buf = self._pinned.get(slot)
+        if buf is None or buf.numel() < nbytes:
+            buf = self._pinned[slot] = torch.empty(
+                nbytes, dtype=torch.uint8, pin_memory=True)
+        host = buf[:nbytes].view(t.dtype).view(t.shape)
+        host.copy_(t, non_blocking=True)
+        return host.numpy()
+
+    def readback(self, view: torch.Tensor, med: torch.Tensor,
+                 tail: Optional[torch.Tensor]):
+        """Host arrays of the view, the median and the tail rows (None
+        without a tail), in the kept buffers: valid until the next
+        readback."""
+        host = [None if t is None else self._into(slot, t)
+                for slot, t in (("view", view), ("median", med),
+                                ("tail", tail))]
+        self._copied.record()
+        self._copied.synchronize()
+        return host
 
 
 class LiveStreamEngine:
@@ -218,7 +366,9 @@ class LiveStreamEngine:
         self._tail_cache_key = None
         self._tail_cache = None
         self._cfg = cfg                         # numerics knobs for the tail
-        self._last_view = None                  # the last tick's (spec, stride)
+        self._last_view = None      # the last tick's (spec, stride, crop_qp)
+        self._display_key = None
+        self._display = None        # (freqs, spec, crop_qp, plot_freqs)
         # host staging of the block being filled: the samples read past
         # the push cursor, plane-major in the assembly's dtype (allocated
         # at the first read), their mask and their count. The carry's
@@ -238,6 +388,9 @@ class LiveStreamEngine:
             precision=cfg.precision, device=self.device, mesh=mesh,
         )
         self.state = self.sti.init_state() if init_device_state else None
+        self._refresh = (_GraphedRefresh(self.device) if mesh is None
+                         and self.device.type == "cuda"
+                         else _EagerRefresh(self.sti))
         # the unfolded count of pushed columns (the state's counter folds)
         self.total_cols = 0
         # per-column validity, same rotating storage as the ring: a column
@@ -499,7 +652,7 @@ class LiveStreamEngine:
         self._staged = 0
 
     # ------------------------------------------------------------- tail view
-    def _tail_view(self, spec, stride: int):
+    def _tail_view(self, spec, stride: int, crop_qp):
         """Display rows for the pending tail: complete columns past the
         push cursor that do not yet fill a whole push block, computed from
         the card's carry and the staged block as a side view by the push's
@@ -508,19 +661,18 @@ class LiveStreamEngine:
         (cursor, pending, crop, colour range): a stopped writer's tail is
         computed once.
 
-        Returns (rows, cols, mask) continuing tick()'s stride grid
+        ``crop_qp`` is the display's (crop, colour range) key, None
+        without a tile. Returns (rows, cols, mask) continuing tick()'s
+        stride grid
         (absolute column j displayed iff (j - total + 1) % stride == 0),
         or (None, None, None) when nothing lands on the grid; ``rows`` is
-        a device tensor of this rank's subchannels (tick() gathers it with
-        the ring's view). The median stays ring-only."""
+        a device tensor of this rank's subchannels (tick() reads it back
+        after the ring's view). The median stays ring-only."""
         pending = self._tail_pending
         grid = np.arange(stride - 1, pending, stride, dtype=np.int64)
         if len(grid) == 0:
             return None, None, None
-        qp = (None if spec is None
-              else tuple(np.asarray(spec.qparams, np.float32).tolist()))
-        key = (self.next_sample, pending,
-               None if spec is None else spec.crop_key(), qp)
+        key = (self.next_sample, pending, crop_qp)
         if key == self._tail_cache_key:
             rows, colmask = self._tail_cache
         else:
@@ -552,6 +704,27 @@ class LiveStreamEngine:
         return rows[stride - 1::stride], cols, colmask[grid]
 
     # --------------------------------------------------------------- display
+    def _display_for(self, cfg: SpectrogramConfig):
+        """(freqs, spec, crop_qp, plot_freqs) of ``cfg``'s display knobs,
+        made once per (nfft, tile, freq window, colour range): ``spec`` is
+        the TileSpec (None without a tile), ``crop_qp`` its (crop, float32
+        colour range) key for the tail and graph caches."""
+        key = (cfg.nfft, cfg.display_tile, tuple(cfg.freq_window_khz),
+               tuple(cfg.color_range_db))
+        if key != self._display_key:
+            freqs = stft.shifted_freqs(cfg.nfft, self.sr)
+            spec = crop_qp = plot_freqs = None
+            if cfg.display_tile:
+                spec = make_tile_spec(freqs, cfg.freq_window_khz,
+                                      cfg.color_range_db)
+            if spec is not None:
+                crop_qp = (spec.crop_key(), tuple(
+                    np.asarray(spec.qparams, np.float32).tolist()))
+                plot_freqs = tile_freqs(spec, freqs)
+            self._display_key = key
+            self._display = (freqs, spec, crop_qp, plot_freqs)
+        return self._display
+
     def tick(self, cfg: SpectrogramConfig) -> Optional[StiResult]:
         """One refresh: ingest the delta, then build the display payload
         from the ring (no recompute of already-pushed columns). Returns
@@ -568,41 +741,39 @@ class LiveStreamEngine:
         stride = -(-W // n_target)                       # ceil
         n_disp = -(-W // stride)
         with profiling.span("live.refresh"):
+            freqs, spec, crop_qp, plot_freqs = self._display_for(cfg)
+            # launched first, so the host work below overlaps the device's
+            view, med = self._refresh.refresh(self, n_disp, stride, spec,
+                                              crop_qp, total)
             cols = self.sti.strided_cols(self.state, n_disp, stride,
                                          total_cols=total)
             # the unfilled rows (negative columns) lead, so the kept rows
             # are a slice: no mask to copy and no count to read back, and
             # the host waits for the device only in the readback
             first = int(np.count_nonzero(cols < 0))
-
-            freqs = stft.shifted_freqs(cfg.nfft, self.sr)
-            spec = None
-            if cfg.display_tile:
-                spec = make_tile_spec(freqs, cfg.freq_window_khz,
-                                      cfg.color_range_db)
-            view, med = self.sti.refresh_local(
-                self.state, n_disp, stride, spec=spec, n_med=W,
-                total_cols=total)
-            view = view[first:]
             kept_cols = cols[first:]
             mask = self.col_mask[kept_cols % self.sti.ring_len]
-            self._last_view = (spec, stride)
+            self._last_view = (spec, stride, crop_qp)
+            t_rows = None
             if self._tail_pending:
                 # complete columns past the push cursor that do not yet
                 # fill a push block surface every tick, so the newest
                 # complete column appears in the tick it completes
-                t_rows, t_cols, t_mask = self._tail_view(spec, stride)
+                t_rows, t_cols, t_mask = self._tail_view(spec, stride,
+                                                         crop_qp)
                 if t_rows is not None:
-                    view = torch.cat([view, t_rows])
                     kept_cols = np.concatenate([kept_cols, t_cols])
                     mask = np.concatenate([mask, t_mask])
-        # one gather of the ring's and the tail's rows, one of the median
         with profiling.span("live.readback"):
-            view = self.sti.gather_view(view).cpu().numpy()
-            med = self.sti.gather_median(med).cpu().numpy()
-        tile = plot_freqs = sxx_dbfs = None
+            view, med, tail = self._refresh.readback(view, med, t_rows)
+        # the kept rows, then the tail's, copied out of the readback's
+        # buffers
+        view = np.concatenate([view[first:]] + ([] if tail is None
+                                                else [tail]))
+        med = med.copy()
+        tile = sxx_dbfs = None
         if spec is not None:
-            tile, plot_freqs = view, tile_freqs(spec, freqs)
+            tile = view
         else:
             sxx_dbfs = stft.to_reference_layout(view)
         starts = self.start_sample + kept_cols * self.hop

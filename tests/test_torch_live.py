@@ -10,6 +10,7 @@ the other. Each package opens the captures with its own reader and gets its
 own config (port_pairs).
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -23,9 +24,15 @@ from pyspectrogram_tpu.runtime import checkpoint as jcheckpoint
 from pyspectrogram_tpu.runtime.live import LiveStreamEngine as JEngine
 from pyspectrogram_tpu_torch.io.memory import MemoryDataset
 from pyspectrogram_tpu_torch.io.reader import RFDataset
-from pyspectrogram_tpu_torch.models.streaming import StreamState
+from pyspectrogram_tpu_torch.kernels import _build
+from pyspectrogram_tpu_torch.models.streaming import StreamingSti, StreamState
 from pyspectrogram_tpu_torch.runtime import LiveStreamEngine, checkpoint
-from pyspectrogram_tpu_torch.runtime.live import _EngineSlot
+from pyspectrogram_tpu_torch.runtime.live import (
+    _EagerRefresh,
+    _EngineSlot,
+    _GraphedRefresh,
+)
+from pyspectrogram_tpu_torch.utils import profiling
 from pyspectrogram_tpu_torch.utils.config import SpectrogramConfig
 
 SR = 100_000
@@ -564,3 +571,175 @@ def test_live_engine_on_growing_memory_dataset():
     assert 0 <= n + 15_000 - (res.frame_starts[-1] + 64) < 32
     assert np.all(np.diff(res.frame_starts) == 32)
     assert abs(res.sxx_med_dbfs.max()) < 0.1
+
+
+# ---------------------------------------------------------------- the card
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the refresh is a CUDA graph only "
+                    "on the card")
+
+
+def _bit_equal(got, want):
+    """Two engines' ticks of the same capture, field by field."""
+    assert (got is None) == (want is None)
+    if got is None:
+        return
+    for f in ("times", "frame_starts", "mask", "freqs", "sxx_med_dbfs",
+              "sxx_dbfs", "tile", "plot_freqs"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+def _counted(eng, cfg):
+    """``eng.tick(cfg)`` and the graph counts of its ``live.refresh``."""
+    profiling.reset()
+    was = profiling.tracing(True)
+    try:
+        res = eng.tick(cfg)
+    finally:
+        profiling.tracing(was)
+    got = [s.counts for s in profiling.spans() if s.name == "live.refresh"]
+    profiling.reset()
+    return res, {k: sum(c.get(k, 0) for c in got)
+                 for k in ("graph", "graph_captures")}
+
+
+def _live_capture(n):
+    rng = np.random.default_rng(7)
+    x = tone_signal(n, SR, [F0, -3 * F0]).reshape(-1, 1) * [1.0, 0.5]
+    x = x + 1e-3 * (rng.standard_normal(x.shape)
+                    + 1j * rng.standard_normal(x.shape))
+    return x.astype(np.complex64)
+
+
+def _eager(eng):
+    """``eng`` with the eager refresh in place of its graph."""
+    assert isinstance(eng._refresh, _GraphedRefresh)
+    eng._refresh = _EagerRefresh(eng.sti)
+    return eng
+
+
+@pytest.mark.parametrize("display_tile", [False, True])
+def test_graphed_tick_equals_an_eager_tick_on_the_card(monkeypatch,
+                                                      display_tile):
+    """On the card the refresh replays a CUDA graph; every tick equals the
+    same capture's tick with the eager refresh (rows copied from the host)
+    bit for bit, and counts the kernel launches it makes: the
+    window filling (each tick eager), the ring wrapping and its counter
+    folding, pending tails, a colour-range and an ntime change and a ring
+    restart behind a backlog, each of the last three recaptured. B2 takes
+    its radix design (938 columns)."""
+    _card()
+    monkeypatch.setattr(StreamingSti, "_FOLD_CAP", 64)
+    x = _live_capture(400_000)
+    n = 1_500
+    ds = MemoryDataset(x[:n], SR)
+    cfg = SpectrogramConfig(nfft=64, ntime=20, stream_seconds=0.3, hop=32,
+                            streaming=True, display_tile=display_tile,
+                            color_range_db=(-90.0, -10.0))
+    g = LiveStreamEngine(ds, cfg, "cuda", target_block_samples=1024)
+    e = _eager(LiveStreamEngine(ds, cfg, "cuda", target_block_samples=1024))
+    assert g.window_cols == 938
+    counts = {"graph": 0, "graph_captures": 0}
+    tails = []
+
+    def tick(c, grow=0):
+        nonlocal n
+        if grow:
+            ds.append(x[n:n + grow])
+            ds.bnds_update()
+            n += grow
+        filled = g.sti.filled_cols(g.total_cols)
+        with _build.tally() as launched:
+            got, k = _counted(g, c)
+        with _build.tally() as want:
+            _bit_equal(got, e.tick(c))
+        assert launched == want
+        if g.sti.filled_cols(g.total_cols) != filled:
+            assert k == {"graph": 0, "graph_captures": 0}     # a new key
+        for key in counts:
+            counts[key] += k[key]
+        tails.append(g._tail_pending)
+        return k
+
+    assert tick(cfg) == {"graph": 0, "graph_captures": 0}     # eager
+    assert tick(cfg) == {"graph": 0, "graph_captures": 1}     # captured
+    while g.total_cols < 3 * g.sti.ring_len:                  # fill, wrap
+        tick(cfg, grow=1_000)
+    assert g.sti.fold_total(g.total_cols) != g.total_cols     # folded
+    assert any(tails) and counts["graph"] > 40
+    for c in (dataclasses.replace(cfg, color_range_db=(-80.0, -30.0)),
+              dataclasses.replace(cfg, ntime=50)):
+        first = tick(c, grow=700)
+        second = tick(c, grow=700)
+        recaptured = display_tile or c.ntime != cfg.ntime
+        assert first == ({"graph": 0, "graph_captures": 0} if recaptured
+                         else {"graph": 1, "graph_captures": 0})
+        assert second == ({"graph": 0, "graph_captures": 1} if recaptured
+                          else {"graph": 1, "graph_captures": 0})
+        cfg = c
+    ring = g.state.ring
+    assert tick(cfg, grow=2 * g.window_cols * g.hop) == {
+        "graph": 0, "graph_captures": 0}                       # restart
+    assert g.state.ring is not ring
+    assert tick(cfg) == {"graph": 0, "graph_captures": 1}
+    assert tick(cfg) == {"graph": 1, "graph_captures": 0}
+
+
+def test_a_patched_refresh_local_is_what_the_graph_replays(monkeypatch):
+    """The graph captures the engine's call of
+    ``StreamingSti.refresh_local`` through the class attribute, so a patch
+    that halves ``n_med`` (the benchmark's planted half-window fault)
+    changes the replayed median exactly as it changes the eager one: once
+    the window is full, and at every step of its fill, where the halved
+    window's span leaves the ladder (469 columns) between two of its
+    rungs."""
+    _card()
+    x = _live_capture(60_000)
+    ds = MemoryDataset(x, SR)
+    cfg = SpectrogramConfig(nfft=64, ntime=20, stream_seconds=0.3, hop=32,
+                            streaming=True, display_tile=True)
+
+    def engines(ds_):
+        return (LiveStreamEngine(ds_, cfg, "cuda", target_block_samples=1024),
+                _eager(LiveStreamEngine(ds_, cfg, "cuda",
+                                        target_block_samples=1024)))
+
+    g, e = engines(ds)
+    want_whole = _eager(LiveStreamEngine(
+        ds, cfg, "cuda", target_block_samples=1024)).tick(cfg)
+    refresh = StreamingSti.refresh_local
+
+    def half(self, *a, **kw):
+        kw["n_med"] = max(1, int(kw["n_med"]) // 2)
+        return refresh(self, *a, **kw)
+
+    monkeypatch.setattr(StreamingSti, "refresh_local", half)
+    replays = ({"graph": 0, "graph_captures": 0},
+               {"graph": 0, "graph_captures": 1},
+               {"graph": 1, "graph_captures": 0})
+    for want in replays:
+        got, k = _counted(g, cfg)
+        assert k == want
+    _bit_equal(got, e.tick(cfg))
+    np.testing.assert_array_equal(got.tile, want_whole.tile)
+    assert np.any(got.sxx_med_dbfs != want_whole.sxx_med_dbfs)
+
+    n = 3_000
+    filling = MemoryDataset(x[:n], SR)
+    g, e = engines(filling)
+    spans = set()
+    while g.total_cols < g.sti.ring_len:
+        for want in replays:
+            got, k = _counted(g, cfg)
+            assert k == want
+            _bit_equal(got, e.tick(cfg))
+        spans.add(g.sti._span(g.sti.filled_cols(g.total_cols),
+                              g.window_cols // 2, True))
+        filling.append(x[n:n + 1_024])                     # one block
+        filling.bnds_update()
+        n += 1_024
+    assert {256, 469} <= spans

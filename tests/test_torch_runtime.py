@@ -478,3 +478,26 @@ def test_launch_counter_is_thread_safe():
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert fn.launches == 16 * 2000
+
+
+def test_a_tally_holds_its_own_threads_counts():
+    """``_build.tally`` collects the counts its thread adds inside the
+    block (a nested tally's too), not another thread's; ``count`` adds
+    ``n`` at once (a replayed graph's launches)."""
+    from pyspectrogram_tpu_torch.kernels import _build
+
+    def fn():
+        pass
+
+    fn.launches = fn.batched_launches = 0
+    with _build.tally() as outer:
+        _build.count(fn)
+        with _build.tally() as inner:
+            _build.count(fn, "batched_launches", 3)
+        other = threading.Thread(target=lambda: _build.count(fn, n=5))
+        other.start()
+        other.join(30)
+    _build.count(fn)
+    assert inner == {(fn, "batched_launches"): 3}
+    assert outer == {(fn, "launches"): 1, (fn, "batched_launches"): 3}
+    assert (fn.launches, fn.batched_launches) == (7, 3)

@@ -8,7 +8,8 @@ inherited unit), counts land on the innermost open span, and finished
 spans go into a bounded ring. A streaming SpectrogramProcessor gives each
 tick ``processor.tick`` holding ``io.bounds``, ``live.push`` (with its
 ``live.read``), ``live.refresh`` and ``live.readback``, then
-``processor.wait``.
+``processor.wait``; on the card its ``live.refresh`` counts the replays
+and captures of the refresh's CUDA graph.
 """
 
 import itertools
@@ -19,6 +20,7 @@ import tracemalloc
 
 import numpy as np
 import pytest
+import torch
 
 from pyspectrogram_tpu_torch.io.reader import RFDataset
 from pyspectrogram_tpu_torch.io.synthetic import tone_signal
@@ -302,3 +304,37 @@ def test_streaming_processor_spans_each_tick(recorder, tmp_path):
     for wait in waits:
         tick = ticks[wait.unit[1]]
         assert wait.parent is None and wait.t0_ns >= tick.t1_ns
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_graph_counts_land_on_live_refresh(recorder, tmp_path, device):
+    """On the card each ``live.refresh`` of a streaming tab counts
+    ``graph``, 0 on the eager tick of a new key and on the tick that
+    captures (it returns the warm-up's outputs), 1 on each replay, and
+    ``graph_captures`` on the tick that captures; no other span counts
+    either, and on the CPU nothing counts them."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the refresh is a CUDA graph only "
+                    "on the card")
+    top = tmp_path / "cap"
+    _capture(top)
+    n = 5
+    cfg = SpectrogramConfig(nfft=256, ntime=16, stream_seconds=0.05,
+                            hop=128, display_tile=True)
+    proc = processor.SpectrogramProcessor(
+        "streaming", RFDataset(top), 3, cfg, streaming_sleep=0.001,
+        max_iterations=n, device=device)
+    profiling.tracing(True)
+    proc.run()
+    profiling.tracing(False)
+    assert proc.reason == TerminateReason.OK
+    spans = profiling.spans()
+    counted = {s.name for s in spans
+               if {"graph", "graph_captures"} & s.counts.keys()}
+    if device == "cpu":
+        assert not counted
+        return
+    assert counted == {"live.refresh"}
+    got = [(s.counts["graph"], s.counts.get("graph_captures", 0))
+           for s in _by(spans, "live.refresh")]
+    assert got == [(0, 0), (0, 1)] + [(1, 0)] * (n - 2)

@@ -22,10 +22,14 @@ from pyspectrogram_tpu.display.tile import (
 )
 from pyspectrogram_tpu.kernels.sti_pallas import make_pallas_stream_psd
 from pyspectrogram_tpu.models.streaming import StreamingSti as JStreamingSti
-from pyspectrogram_tpu_torch.display.tile import make_tile_spec
+from pyspectrogram_tpu_torch.display.tile import (
+    make_tile_spec,
+    quantize_tile_linear,
+)
 from pyspectrogram_tpu_torch.kernels import stream_cuda
 from pyspectrogram_tpu_torch.models.streaming import StreamingSti, StreamState
 from pyspectrogram_tpu_torch.ops import stft
+from pyspectrogram_tpu_torch.ops.plain import to_dbfs
 
 LIN = dict(rtol=2e-4, atol=1e-6)
 
@@ -247,6 +251,73 @@ def test_counter_fold_preserves_all_views():
     np.testing.assert_array_equal(
         s.strided_cols(st, 4, 2, total_cols=total),
         js.strided_cols(jst, 4, 2, total_cols=total))
+
+
+class _SmallFold(StreamingSti):
+    _FOLD_CAP = 32
+
+
+#: (blocks of 4 columns pushed into a 64-row ring, whether the counter
+#: folds at 128): the window filling (negative columns), a ring wrapped
+#: twice and more, a counter past the fold
+CURSOR_STATES = [(3, False), (40, False), (50, True)]
+
+
+def _pushed(blocks, fold):
+    """A stream after ``blocks`` pushes, its state and the unfolded count
+    of columns."""
+    cls = _SmallFold if fold else StreamingSti
+    s = cls(nfft=64, nsub=2, block_len=256, ring_len=64, device="cpu")
+    st = s.init_state()
+    for b in _blocks(blocks, 2, 256, "float32", seed=11):
+        st, _ = s.push(st, torch.from_numpy(b), return_db=False)
+    total = 4 * blocks
+    assert (st.total_cols != total) == fold
+    return s, st, total
+
+
+@pytest.mark.parametrize("blocks,fold", CURSOR_STATES)
+def test_cursor_rows_equal_the_host_rows(blocks, fold):
+    """The rows built from the newest column's row (the folded counter's)
+    are the host's ``np.mod(cols, ring_len)`` of the unfolded columns
+    (the JAX class's rows): the view's stride grid and the median's newest
+    n, unfilled columns included."""
+    s, st, total = _pushed(blocks, fold)
+    cur = torch.tensor([s.newest_row(st.total_cols)])
+    np.testing.assert_array_equal(cur.numpy(), s._cursor(st).numpy())
+    for n, step in ((8, 4), (16, 3), (40, 1), (64, 1), (1, 1)):
+        cols = total - 1 - step * np.arange(n - 1, -1, -1)
+        got = s.cursor_rows(cur, n, step)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), np.mod(cols, 64))
+    np.testing.assert_array_equal(
+        s.cursor_rows(cur, 40).numpy(),
+        np.mod(st.total_cols - 40 + np.arange(40), 64))
+
+
+@pytest.mark.parametrize("blocks,fold", CURSOR_STATES)
+def test_refresh_local_with_a_cursor_is_bit_equal(blocks, fold):
+    """refresh_local with a cursor the caller keeps (the engine's, from
+    the unfolded count) gives the view (dB and tile) and median of the
+    ring's rows gathered on the host, bit for bit, B2's plain version
+    included; and so does its default cursor, from the state."""
+    s, st, total = _pushed(blocks, fold)
+    cur = torch.tensor([s.newest_row(total)])
+    ring = st.ring.numpy()
+    for spec in (None, _spec(64)):
+        for n_disp, stride, n_med in ((8, 4, 40), (16, 3, 64), (64, 1, 7)):
+            cols = total - 1 - stride * np.arange(n_disp - 1, -1, -1)
+            n = s._span(min(total, 64), n_med, True)
+            sel = torch.from_numpy(ring[np.mod(cols, 64)])
+            want = (to_dbfs(sel, s.eps) if spec is None
+                    else quantize_tile_linear(sel, spec, s.eps, spec.qparams),
+                    to_dbfs(stft.median_over_time(torch.from_numpy(
+                        ring[np.mod(total - n + np.arange(n), 64)])), s.eps))
+            for kw in ({"cursor": cur}, {}):
+                got = s.refresh_local(st, n_disp, stride, spec=spec,
+                                      n_med=n_med, total_cols=total, **kw)
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_push_consumes_state_in_place():
